@@ -1,0 +1,183 @@
+"""Decoder-only transformer LM with pluggable attention.
+
+Counterpart of ``bluefog_tpu/models/transformer.py`` (``apply_rope`` :26-37,
+``_attention_sublayer`` :40-56, ``Block`` :59-76, ``TransformerLM``
+:113-170). Module and parameter names follow the flax tree (``embed``,
+``block_<i>.{RMSNorm_0, qkv, out, RMSNorm_1, up, down}``, ``final_norm``,
+``lm_head``) so ``utils.interop.params_from_jax`` maps one to the other.
+
+Numerics follow flax, including its cast points:
+
+  * ``Dense(dtype=bf16, param_dtype=f32)`` casts the input AND the f32
+    weight to the compute dtype before the product;
+  * ``RMSNorm`` (eps 1e-6) computes in f32 and casts to the compute dtype;
+  * ``Embed`` returns rows of the table in the compute dtype;
+  * ``nn.gelu`` is the tanh approximation;
+  * RoPE is half-split (not interleaved) and computed in f32;
+  * logits are cast to f32.
+
+The Switch-MoE block is a later slice: ``num_experts > 0`` raises.
+"""
+
+from __future__ import annotations
+
+from functools import partial
+from typing import Callable, Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..parallel.context import reference_attention
+from ..runtime.state import resolve_device
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               base: float = 10000.0) -> torch.Tensor:
+    """Rotary position embedding over [B, S, H, D] with positions [S] or
+    [B, S]."""
+    d2 = x.shape[-1] // 2
+    freqs = base ** (-torch.arange(0, d2, dtype=torch.float32,
+                                   device=x.device) / d2)
+    if positions.dim() == 1:
+        positions = positions[None]
+    ang = positions[..., None].float() * freqs           # [B, S, d2]
+    sin = torch.sin(ang)[:, :, None, :]
+    cos = torch.cos(ang)[:, :, None, :]
+    x1, x2 = x[..., :d2].float(), x[..., d2:].float()
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+class RMSNorm(nn.Module):
+    def __init__(self, dim: int, dtype: torch.dtype, device=None) -> None:
+        super().__init__()
+        self.dtype = dtype
+        self.scale = nn.Parameter(
+            torch.ones(dim, dtype=torch.float32, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        var = xf.square().mean(dim=-1, keepdim=True)
+        mul = torch.rsqrt(var + 1e-6) * self.scale
+        return (xf * mul).to(self.dtype)
+
+
+class Dense(nn.Module):
+    """Bias-free dense layer: f32 weight [out, in], product in ``dtype``."""
+
+    def __init__(self, d_in: int, d_out: int, dtype: torch.dtype,
+                 device=None) -> None:
+        super().__init__()
+        self.dtype = dtype
+        self.weight = nn.Parameter(
+            torch.empty(d_out, d_in, dtype=torch.float32, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x.to(self.dtype), self.weight.to(self.dtype))
+
+
+class Embed(nn.Module):
+    def __init__(self, vocab: int, dim: int, dtype: torch.dtype,
+                 device=None) -> None:
+        super().__init__()
+        self.dtype = dtype
+        self.weight = nn.Parameter(
+            torch.empty(vocab, dim, dtype=torch.float32, device=device))
+
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        # a gather then a cast: the same values as gathering from the
+        # table cast to ``dtype`` (flax), without casting the whole table
+        return self.weight[tokens].to(self.dtype)
+
+
+class Block(nn.Module):
+    """Pre-norm attention + gelu FFN, each with a residual."""
+
+    def __init__(self, d_model: int, num_heads: int, d_ff: int,
+                 dtype: torch.dtype, attn_fn: Callable, device=None) -> None:
+        super().__init__()
+        self.num_heads = num_heads
+        self.attn_fn = attn_fn
+        self.RMSNorm_0 = RMSNorm(d_model, dtype, device)
+        self.qkv = Dense(d_model, 3 * d_model, dtype, device)
+        self.out = Dense(d_model, d_model, dtype, device)
+        self.RMSNorm_1 = RMSNorm(d_model, dtype, device)
+        self.up = Dense(d_model, d_ff, dtype, device)
+        self.down = Dense(d_ff, d_model, dtype, device)
+
+    def forward(self, x: torch.Tensor, positions: torch.Tensor):
+        B, S, d_model = x.shape
+        h = self.RMSNorm_0(x)
+        q, k, v = self.qkv(h).split(d_model, dim=-1)
+        shape = (B, S, self.num_heads, d_model // self.num_heads)
+        q, k, v = (t.reshape(shape) for t in (q, k, v))
+        q = apply_rope(q, positions)
+        k = apply_rope(k, positions)
+        a = self.attn_fn(q, k, v).reshape(B, S, d_model)
+        x = x + self.out(a)
+        h = self.up(self.RMSNorm_1(x))
+        return x + self.down(F.gelu(h, approximate="tanh"))
+
+
+class TransformerLM(nn.Module):
+    """Causal LM. ``attn_fn(q, k, v) -> out`` defaults to dense attention.
+
+    Weights are random, drawn on ``device`` from ``seed`` (normal with std
+    1/sqrt(fan_in) for dense layers and the embedding, ones for norms), or
+    loaded with ``load_state_dict`` (e.g. from ``params_from_jax``).
+    """
+
+    def __init__(self, vocab_size: int, num_layers: int = 2,
+                 num_heads: int = 4, d_model: int = 128, d_ff: int = 512,
+                 dtype: torch.dtype = torch.float32,
+                 attn_fn: Optional[Callable] = None, num_experts: int = 0,
+                 *, device=None, seed: int = 0) -> None:
+        super().__init__()
+        if num_experts:
+            raise NotImplementedError(
+                "the Switch-MoE block is not ported yet (ROADMAP Queue 1)")
+        dev = resolve_device(device)
+        self.vocab_size = vocab_size
+        self.num_layers = num_layers
+        self.dtype = dtype
+        attn = attn_fn or partial(reference_attention, causal=True)
+        self.embed = Embed(vocab_size, d_model, dtype, dev)
+        for i in range(num_layers):
+            setattr(self, f"block_{i}",
+                    Block(d_model, num_heads, d_ff, dtype, attn, dev))
+        self.final_norm = RMSNorm(d_model, dtype, dev)
+        self.lm_head = Dense(d_model, vocab_size, dtype, dev)
+        self.reset_parameters(seed)
+
+    @torch.no_grad()
+    def reset_parameters(self, seed: int = 0) -> None:
+        gen = torch.Generator(device=self.embed.weight.device)
+        gen.manual_seed(seed)
+        for mod in self.modules():
+            if isinstance(mod, (Dense, Embed)):
+                fan_in = mod.weight.shape[1]
+                mod.weight.normal_(0.0, fan_in ** -0.5, generator=gen)
+
+    def hidden(self, tokens: torch.Tensor,
+               positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Backbone output [B, S, d_model] BEFORE the vocab projection."""
+        if positions is None:
+            positions = torch.arange(tokens.shape[1], device=tokens.device)
+        x = self.embed(tokens)
+        for i in range(self.num_layers):
+            x = getattr(self, f"block_{i}")(x, positions)
+        return self.final_norm(x)
+
+    def forward(self, tokens: torch.Tensor,
+                positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return self.lm_head(self.hidden(tokens, positions)).float()
+
+
+def lm_loss(model: TransformerLM, batch) -> torch.Tensor:
+    """Mean next-token softmax cross-entropy of ``batch = (tokens,
+    targets)`` (the loss of ``scripts/lm_bench.py``)."""
+    tokens, targets = batch
+    logits = model(tokens)
+    return F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                           targets.reshape(-1))

@@ -1,0 +1,50 @@
+"""The port stands alone, and runs on the CPU only when asked to.
+
+A fresh interpreter imports every module of ``bluefog_tpu_torch`` and
+``chip_smoke.py`` and must find neither JAX, flax, optax nor any module of
+the JAX package loaded. On this GPU-less machine the entry points raise
+unless ``device="cpu"`` is passed.
+"""
+
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import bluefog_tpu_torch as bft
+
+_REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_PROBE = """
+import importlib, pkgutil, sys
+import bluefog_tpu_torch, chip_smoke
+for m in pkgutil.walk_packages(bluefog_tpu_torch.__path__, "bluefog_tpu_torch."):
+    importlib.import_module(m.name)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
+                                    "bluefog_tpu"))
+assert not bad, bad
+print("clean", len([m for m in sys.modules if m.startswith("bluefog_tpu_torch")]))
+"""
+
+
+def test_port_imports_no_jax():
+    env = dict(os.environ, PYTHONPATH=_REPO)
+    res = subprocess.run([sys.executable, "-c", _PROBE], cwd=_REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert res.stdout.startswith("clean")
+
+
+@pytest.mark.parametrize("entry", ["init", "TransformerLM"])
+def test_port_entry_points_refuse_cpu_fallback(entry):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        if entry == "init":
+            bft.init()
+        else:
+            bft.models.TransformerLM(vocab_size=16)
+    assert not torch.distributed.is_initialized()
