@@ -19,7 +19,7 @@ Phases (each raises on failure; the script then exits non-zero):
    of 128, d_ff 8192, vocab 32768, bf16 compute, f32 params) under
    ``DistributedNeighborAllreduceOptimizer`` around Adam (lr 1e-3), batch
    1 x 8192 tokens, 2 warm-up and 5 timed steps. The launch counts are set
-   to 0 just before and read just after; each kernel must show ``layers``
+   to 0 just before and read just after; each kernel must show ``LAYERS``
    launches per step. Before that, a small model checks flash logits and
    gradients against dense attention on the card.
 
@@ -30,7 +30,6 @@ package beside this file, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
-import argparse
 import json
 import math
 import os
@@ -39,6 +38,14 @@ import sys
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+OUT = os.path.join(HERE, "chiprun_out", "chip_smoke.json")
+
+# the main path: the repo's LM headline (scripts/lm_bench.py:128-145) at its
+# own depth, one sequence of SEQ tokens, WARMUP untimed then STEPS timed steps
+LAYERS = 4
+SEQ = 8192
+WARMUP = 2
+STEPS = 5
 
 # H100 SXM data-sheet peaks (dense): bf16 tensor cores, TF32 tensor cores,
 # HBM3 bandwidth.
@@ -46,15 +53,17 @@ PEAK_BF16 = 989e12
 PEAK_TF32 = 495e12
 PEAK_BYTES = 3.35e12
 
-# kernel checks in bf16 against the plain versions, normalised errors:
-# forward o/l (the attention output) and backward max|err| / max|plain|;
-# both versions round p (forward) and dS (backward) to bf16 at different
-# points (running vs final row max; TF32 vs f32 dp), so the bound is a few
-# bf16 ulps (2^-8 = 3.9e-3) of the largest value.
-TOL_FWD = 2e-2
-TOL_BWD = 2e-2
-TOL_M = 1e-3        # row max of the scores (f32 accumulation both sides)
-TOL_L = 1e-2        # relative row sum
+# kernel checks in bf16 against the plain versions. Both versions round p
+# (forward) and dS (backward) to bf16 at different points (running vs final
+# row max; TF32 vs f32 dp), so the forward error is a few bf16 ulps of o/l
+# and the backward error, max|err| / max|plain|, a few ulps of the largest
+# value; measured on an H100 (PERF.md): o/l <= 1.4e-3, dq/dk/dv <= 4.7e-3,
+# m 2.9e-6, l 2.6e-6 relative. A missing alpha rescale or a dropped K tile
+# moves m, l or o/l by orders of magnitude more.
+TOL_FWD = 5e-3      # max |o/l - plain o/l|, S=1024 and S=8192
+TOL_BWD = 1e-2      # normalised dq, dk, dv, S=1024 and S=8192
+TOL_M = 1e-4        # row max of the scores (f32 accumulation both sides)
+TOL_L = 1e-4        # relative row sum
 TOL_MODEL = 5e-2    # flash vs dense logits, bf16 model, max|err|/max|ref|
 
 KERNELS = {
@@ -235,65 +244,105 @@ def model_check(bf, fl, torch, dev) -> None:
         raise RuntimeError("flash model disagrees with dense attention")
 
 
-def train(bf, fl, torch, layers: int, seq: int, warmup: int,
-          steps: int) -> dict:
-    bf.init()                                    # NCCL, world of one
-    dev = torch.device("cuda", torch.cuda.current_device())
+def headline(bf, torch, dev, attn_fn, seq: int = SEQ):
+    """The main path's model, optimizer and batch (seeded, random weights).
+
+    ``TransformerLM`` at the repo's headline width with ``LAYERS`` layers
+    under ``DistributedNeighborAllreduceOptimizer`` around Adam (lr 1e-3),
+    one repeated batch of ``seq`` tokens. Needs ``bf.init()`` first.
+    """
     model = bf.models.TransformerLM(
-        vocab_size=32768, num_layers=layers, num_heads=16, d_model=2048,
-        d_ff=8192, dtype=torch.bfloat16, attn_fn=fl.flash_attention,
-        device=dev, seed=0)
+        vocab_size=32768, num_layers=LAYERS, num_heads=16, d_model=2048,
+        d_ff=8192, dtype=torch.bfloat16, attn_fn=attn_fn, device=dev, seed=0)
     opt = bf.DistributedNeighborAllreduceOptimizer(
         torch.optim.Adam(model.parameters(), lr=1e-3), model,
         bf.models.lm_loss)
     gen = torch.Generator(device=dev).manual_seed(1)
     toks = torch.randint(0, 32768, (1, seq), generator=gen, device=dev)
-    batch = (toks, toks.roll(-1, dims=1))
+    return model, opt, (toks, toks.roll(-1, dims=1))
+
+
+def train(bf, fl, torch) -> dict:
+    bf.init()                                    # NCCL, world of one
+    dev = torch.device("cuda", torch.cuda.current_device())
+    model, opt, batch = headline(bf, torch, dev, fl.flash_attention)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     fl.reset_launch_counts()
     losses = []
-    for _ in range(warmup):
+    for _ in range(WARMUP):
         losses.append(opt.step(batch)["loss"])
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for _ in range(steps):
+    for _ in range(STEPS):
         losses.append(opt.step(batch)["loss"])
     torch.cuda.synchronize()
-    dt = (time.perf_counter() - t0) / steps
+    dt = (time.perf_counter() - t0) / STEPS
     counts = dict(fl.launch_counts)
     losses = [float(x) for x in losses]
     peak = torch.cuda.max_memory_allocated()
     n_params = sum(p.numel() for p in model.parameters())
-    log(f"train: layers={layers} seq={seq} params={n_params} "
-        f"ms/step={dt * 1e3:.3f} tokens/s={seq / dt:.1f} "
+    log(f"train: layers={LAYERS} seq={SEQ} params={n_params} "
+        f"ms/step={dt * 1e3:.3f} tokens/s={SEQ / dt:.1f} "
         f"peak_mem_GiB={peak / 2**30:.3f}")
     log("train losses: " + " ".join(f"{x:.5f}" for x in losses))
     log(f"train launches: {counts}")
-    total = warmup + steps
+    total = WARMUP + STEPS
     for name, c in counts.items():
-        if c != layers * total:
+        if c != LAYERS * total:
             raise RuntimeError(f"{name} launched {c} times in {total} steps "
-                               f"of {layers} layers")
+                               f"of {LAYERS} layers")
     if not all(math.isfinite(x) for x in losses):
         raise RuntimeError(f"non-finite loss {losses}")
     if not losses[-1] < losses[0]:
         raise RuntimeError(f"loss did not fall on a repeated batch {losses}")
     bf.shutdown()
     return {"counts": counts, "ms_per_step": dt * 1e3,
-            "tokens_per_s": seq / dt, "peak_bytes": peak, "losses": losses}
+            "tokens_per_s": SEQ / dt, "peak_bytes": peak, "losses": losses}
+
+
+def max_abs_errs(fl, torch, dev, B, S, H, D) -> dict:
+    """Each kernel's max |kernel - plain| at the main path's shape.
+
+    Forward on o/l; raises when o/l is off by more than ``TOL_FWD`` or a
+    gradient, normalised by its plain version's largest value, by more
+    than ``TOL_BWD``.
+    """
+    gen = torch.Generator(device=dev).manual_seed(5)
+    q, k, v = (torch.randn((B, S, H, D), generator=gen, device=dev)
+               .to(torch.bfloat16) for _ in range(3))
+    g = torch.randn((B, S, H, D), generator=gen, device=dev)
+    o, m, l = fl.flash_block(q, k, v, 0, 0, causal=True)
+    po, pm, pl = fl.flash_block_plain(q, k, v, 0, 0, causal=True)
+    out = (po / pl[..., None]).to(torch.bfloat16)
+    d_term = (g * out.float()).sum(-1)
+    args = (q, k, v, g, d_term, pm, pl, 0, 0)
+    errs = {"flash_fwd": float((o / l[..., None]
+                                - po / pl[..., None]).abs().max())}
+    normed = {}
+    del o, m, l, po
+    dq = fl.flash_bwd_dq(*args, causal=True)
+    pdq = fl.flash_bwd_dq_plain(*args, causal=True)
+    errs["flash_bwd_dq"] = float((dq - pdq).abs().max())
+    normed["flash_bwd_dq"] = nerr(dq, pdq)
+    del dq, pdq
+    dk, dv = fl.flash_bwd_dkv(*args, causal=True)
+    pdk, pdv = fl.flash_bwd_dkv_plain(*args, causal=True)
+    errs["flash_bwd_dkv"] = max(float((dk - pdk).abs().max()),
+                                float((dv - pdv).abs().max()))
+    normed["flash_bwd_dkv"] = max(nerr(dk, pdk), nerr(dv, pdv))
+    log(f"max_abs_err at S={S} (fwd on o/l, limit {TOL_FWD}): {errs}")
+    log(f"normalised backward err at S={S} (limit {TOL_BWD}): {normed}")
+    bad = {n: e for n, e in normed.items() if not e <= TOL_BWD}
+    if not errs["flash_fwd"] <= TOL_FWD:
+        bad["flash_fwd"] = errs["flash_fwd"]
+    if bad:
+        raise RuntimeError(f"kernel disagrees with its plain version at the "
+                           f"main path's shape S={S}: {bad}")
+    return errs
 
 
 def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--layers", type=int, default=4)
-    ap.add_argument("--seq", type=int, default=8192)
-    ap.add_argument("--warmup", type=int, default=2)
-    ap.add_argument("--steps", type=int, default=5)
-    ap.add_argument("--out", default=os.path.join(HERE, "chiprun_out",
-                                                  "chip_smoke.json"))
-    a = ap.parse_args()
-
     import torch
 
     if not torch.cuda.is_available():
@@ -325,29 +374,28 @@ def main() -> int:
     check_kernels(fl, torch, B, 1024, H, D,
                   [(0, 0), (1024, 0), (0, 1024)], dev)
     check_kernels(fl, torch, B, 1000, 4, 64, [(0, 0), (37, 0)], dev)
-    bench = kernel_bench(fl, torch, dev, B, a.seq, H, D)
+    # max_abs_err: kernel vs plain at the main path's shape, bf16
+    errs = max_abs_errs(fl, torch, dev, B, SEQ, H, D)
+    torch.cuda.empty_cache()
+    bench = kernel_bench(fl, torch, dev, B, SEQ, H, D)
     torch.cuda.empty_cache()
     model_check(bf, fl, torch, dev)
     torch.cuda.empty_cache()
 
-    run = train(bf, fl, torch, a.layers, a.seq, a.warmup, a.steps)
+    run = train(bf, fl, torch)
 
     kernels = []
     for name, (src, tpu) in KERNELS.items():
         r = bench[name]
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": tpu,
-            "launches": run["counts"][name], "max_abs_err": None,
+            "launches": run["counts"][name], "max_abs_err": errs[name],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "library_call": r["library_call"],
         })
-    # max_abs_err: kernel vs plain at the main path's shape, bf16
-    errs = max_abs_errs(fl, torch, dev, B, a.seq, H, D)
-    for kern in kernels:
-        kern["max_abs_err"] = errs[kern["name"]]
-    os.makedirs(os.path.dirname(a.out), exist_ok=True)
-    with open(a.out, "w") as f:
+    os.makedirs(os.path.dirname(OUT), exist_ok=True)
+    with open(OUT, "w") as f:
         json.dump({"card": card, "kernels": kernels, "train": run}, f,
                   indent=1)
     log(json.dumps({"kernels": kernels}))
@@ -355,31 +403,6 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
-
-
-def max_abs_errs(fl, torch, dev, B, S, H, D) -> dict:
-    """Each kernel's max |kernel - plain| on the main path's shape."""
-    gen = torch.Generator(device=dev).manual_seed(5)
-    q, k, v = (torch.randn((B, S, H, D), generator=gen, device=dev)
-               .to(torch.bfloat16) for _ in range(3))
-    g = torch.randn((B, S, H, D), generator=gen, device=dev)
-    o, m, l = fl.flash_block(q, k, v, 0, 0, causal=True)
-    po, pm, pl = fl.flash_block_plain(q, k, v, 0, 0, causal=True)
-    out = (po / pl[..., None]).to(torch.bfloat16)
-    d_term = (g * out.float()).sum(-1)
-    args = (q, k, v, g, d_term, pm, pl, 0, 0)
-    errs = {"flash_fwd": float((o / l[..., None]
-                                - po / pl[..., None]).abs().max())}
-    del o, m, l, po
-    errs["flash_bwd_dq"] = float((fl.flash_bwd_dq(*args, causal=True)
-                                  - fl.flash_bwd_dq_plain(*args, causal=True))
-                                 .abs().max())
-    dk, dv = fl.flash_bwd_dkv(*args, causal=True)
-    pdk, pdv = fl.flash_bwd_dkv_plain(*args, causal=True)
-    errs["flash_bwd_dkv"] = max(float((dk - pdk).abs().max()),
-                                float((dv - pdv).abs().max()))
-    log(f"max_abs_err at S={S} (fwd on o/l): {errs}")
-    return errs
 
 
 if __name__ == "__main__":

@@ -1,18 +1,18 @@
 #!/usr/bin/env python3
 """Flash vs dense attention: the port's training losses side by side.
 
-    python3 scripts/torch_port_loss_probe.py [--seq 2048] [--steps 10]
+    python3 scripts/torch_port_loss_probe.py
 
-Trains the port's headline-width ``TransformerLM`` (d_model 2048, 16 heads,
-d_ff 8192, vocab 32768, 4 layers, bf16) twice from the same seed under
-``DistributedNeighborAllreduceOptimizer`` around Adam (lr 1e-3) on one
-repeated batch — once with the CUDA flash kernels, once with the dense
-``reference_attention`` — and prints both loss curves. Needs one CUDA card.
+Trains ``chip_smoke.py``'s main path (``chip_smoke.headline``: the
+headline-width ``TransformerLM`` under ``DistributedNeighborAllreduceOptimizer``
+around Adam, lr 1e-3, one repeated batch) at SEQ tokens for STEPS steps,
+twice from the same seed — once with the CUDA flash kernels, once with the
+dense ``reference_attention`` — and prints both loss curves. Needs one CUDA
+card.
 """
 
 from __future__ import annotations
 
-import argparse
 import os
 import sys
 from functools import partial
@@ -22,34 +22,27 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import bluefog_tpu_torch as bf  # noqa: E402
+import chip_smoke  # noqa: E402
 from bluefog_tpu_torch.parallel import flash_attention  # noqa: E402
 from bluefog_tpu_torch.parallel.context import reference_attention  # noqa: E402
 
 
-def losses(attn, seq: int, steps: int, dev) -> list:
-    model = bf.models.TransformerLM(
-        vocab_size=32768, num_layers=4, num_heads=16, d_model=2048,
-        d_ff=8192, dtype=torch.bfloat16, attn_fn=attn, device=dev, seed=0)
-    opt = bf.DistributedNeighborAllreduceOptimizer(
-        torch.optim.Adam(model.parameters(), lr=1e-3), model,
-        bf.models.lm_loss)
-    gen = torch.Generator(device=dev).manual_seed(1)
-    toks = torch.randint(0, 32768, (1, seq), generator=gen, device=dev)
-    return [float(opt.step((toks, toks.roll(-1, 1)))["loss"])
-            for _ in range(steps)]
+SEQ = 2048
+STEPS = 10
+
+
+def losses(attn, dev) -> list:
+    _, opt, batch = chip_smoke.headline(bf, torch, dev, attn, seq=SEQ)
+    return [float(opt.step(batch)["loss"]) for _ in range(STEPS)]
 
 
 def main() -> None:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--seq", type=int, default=2048)
-    ap.add_argument("--steps", type=int, default=10)
-    a = ap.parse_args()
     bf.init()
     dev = torch.device("cuda", torch.cuda.current_device())
     for name, attn in (("flash", flash_attention),
                        ("dense", partial(reference_attention, causal=True))):
-        curve = losses(attn, a.seq, a.steps, dev)
-        print(f"seq={a.seq} {name}: " + " ".join(f"{x:.4f}" for x in curve),
+        curve = losses(attn, dev)
+        print(f"seq={SEQ} {name}: " + " ".join(f"{x:.4f}" for x in curve),
               flush=True)
         torch.cuda.empty_cache()
     bf.shutdown()

@@ -1,20 +1,20 @@
 #!/usr/bin/env python3
 """Where the port's headline train step spends its device time.
 
-    python3 scripts/torch_port_step_profile.py [--layers 4] [--seq 8192]
+    python3 scripts/torch_port_step_profile.py
 
-Builds the port's headline-width flash ``TransformerLM`` (d_model 2048, 16
-heads, d_ff 8192, vocab 32768, bf16) under
-``DistributedNeighborAllreduceOptimizer`` around Adam, runs 2 warm-up steps,
-then traces 3 steps with ``torch.profiler`` and prints: the step's wall
-time, the summed device time per kernel (top 15), the device time grouped
-into flash kernels / matmuls / the rest, and the device busy share of the
-traced window. Needs one CUDA card.
+Builds ``chip_smoke.py``'s main path (``chip_smoke.headline``: the
+headline-width flash ``TransformerLM`` under
+``DistributedNeighborAllreduceOptimizer`` around Adam, ``LAYERS`` layers,
+``SEQ`` tokens), runs ``WARMUP`` steps, then traces ``STEPS`` steps with
+``torch.profiler`` and prints: the step's wall time, the summed device time
+per kernel (top 15), the device time grouped into flash kernels / matmuls /
+the rest, and the device busy share of the traced window. Needs one CUDA
+card.
 """
 
 from __future__ import annotations
 
-import argparse
 import os
 import sys
 import time
@@ -25,6 +25,7 @@ from torch.profiler import ProfilerActivity, profile
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import bluefog_tpu_torch as bf  # noqa: E402
+import chip_smoke  # noqa: E402
 from bluefog_tpu_torch.parallel import flash_attention  # noqa: E402
 
 _GROUPS = (("flash kernels", ("flash_fwd_kernel", "flash_bwd_dq_kernel",
@@ -42,30 +43,17 @@ def _group(name: str) -> str:
 
 
 def main() -> None:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--layers", type=int, default=4)
-    ap.add_argument("--seq", type=int, default=8192)
-    ap.add_argument("--steps", type=int, default=3)
-    a = ap.parse_args()
     bf.init()
     dev = torch.device("cuda", torch.cuda.current_device())
-    model = bf.models.TransformerLM(
-        vocab_size=32768, num_layers=a.layers, num_heads=16, d_model=2048,
-        d_ff=8192, dtype=torch.bfloat16, attn_fn=flash_attention,
-        device=dev, seed=0)
-    opt = bf.DistributedNeighborAllreduceOptimizer(
-        torch.optim.Adam(model.parameters(), lr=1e-3), model,
-        bf.models.lm_loss)
-    gen = torch.Generator(device=dev).manual_seed(1)
-    toks = torch.randint(0, 32768, (1, a.seq), generator=gen, device=dev)
-    batch = (toks, toks.roll(-1, 1))
-    for _ in range(2):
+    _, opt, batch = chip_smoke.headline(bf, torch, dev, flash_attention)
+    for _ in range(chip_smoke.WARMUP):
         opt.step(batch)
     torch.cuda.synchronize()
+    steps = chip_smoke.STEPS
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(a.steps):
+        for _ in range(steps):
             opt.step(batch)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -81,19 +69,19 @@ def main() -> None:
             kernels[evt.name] = kernels.get(evt.name, 0.0) + \
                 evt.time_range.elapsed_us()
     busy_us = sum(kernels.values())
-    step_ms = wall / a.steps * 1e3
+    step_ms = wall / steps * 1e3
     print(f"card: {torch.cuda.get_device_name(0)}")
     print(f"wall ms/step {step_ms:.3f}; device busy ms/step "
-          f"{busy_us / a.steps / 1e3:.3f}; busy share "
+          f"{busy_us / steps / 1e3:.3f}; busy share "
           f"{busy_us / 1e3 / (wall * 1e3):.4f}")
     groups = {}
     for name, us in kernels.items():
         groups[_group(name)] = groups.get(_group(name), 0.0) + us
     for label, us in sorted(groups.items(), key=lambda kv: -kv[1]):
-        print(f"group {label}: {us / a.steps / 1e3:.3f} ms/step "
+        print(f"group {label}: {us / steps / 1e3:.3f} ms/step "
               f"({us / busy_us:.4f} of device time)")
     for name, us in sorted(kernels.items(), key=lambda kv: -kv[1])[:15]:
-        print(f"kernel {us / a.steps / 1e3:9.3f} ms/step  {name[:110]}")
+        print(f"kernel {us / steps / 1e3:9.3f} ms/step  {name[:110]}")
     bf.shutdown()
 
 
