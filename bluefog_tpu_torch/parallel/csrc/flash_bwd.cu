@@ -1,403 +1,540 @@
-// K2 + K3: flash-attention-2 backward of a query block against one K/V block.
+// K2 + K3: flash-attention-2 backward of a query block against one K/V block,
+// written for Hopper (wgmma, TMA, mbarriers, bf16 operands).
 //
 // Replaces: bluefog_tpu/parallel/flash.py `_dq_kernel` (:283-311, pass 1 of
 // `flash_block_bwd`, :391-413) and `_dkv_kernel` (:314-348, pass 2, :415-441),
 // with their shared tile recompute `_bwd_tiles` (:216-267).
 //
-// Both passes rebuild the probability tile from the saved GLOBAL row stats
-// (m, l) and d = sum(dO * O), with the forward's offset-based causal classes:
-//   s   = (q . k^T) * scale               bf16 operands, f32 accumulation
-//   p   = exp(s - m)  (zeroed where masked; unnormalised, in [0, 1])
-//   g'  = g * inv_l                       g arrives in f32, stays f32
-//   dp  = g' . V^T                        f32 g' x bf16 V
-//   ds  = p * (dp - d * inv_l)            = dS of the normalised softmax
+// Both passes rebuild the normalised probabilities from the saved GLOBAL row
+// stats, with the forward's offset-based causal classes:
+//   s   = q . k^T                          bf16 operands, f32 accumulation
+//   P   = exp2(s * scale * log2(e) - lse2) = exp(s*scale - m) / l
+//   dp  = g_b . V^T                         g_b = bf16(g), bf16 products
+//   ds  = P * (dp - d)
 //   K2: dq = sum_k bf16(ds) . K * scale
-//   K3: dv = sum_q p^T . g',   dk = sum_q bf16(ds)^T . Q * scale
-// The cast points are the JAX kernels': g is f32 through g', dp and dv; ds
-// is rounded to the bf16 input type for the dq and dk products. The two
-// products with an f32 operand (dp and dv) run on TF32 tensor cores
-// (10-bit mantissa, f32 accumulation): V is bf16 and so exact in TF32, and
-// g' and p lose bits only below bf16's own precision of the outputs'
-// consumers (the gradients are cast to bf16). A row whose l is 0 (no live
-// key at all) gets inv_l = 0 rather than inf, in the kernel and in its plain
-// version alike, so a dead row yields zero gradients.
+//   K3: dv = sum_q bf16(P)^T . g_b,   dk = sum_q bf16(ds)^T . Q * scale
+// This equals JAX's p_un * (dp * inv_l - d * inv_l) and p_un^T . (g * inv_l).
+// The wrapper (flash.py `_bwd_operands`) casts g to bf16 once per call (exact
+// on the main path, whose g is the widened cotangent of a bf16 output) and
+// packs [B*H, Sq_pad, 2] f32 row stats (lse2, d), lse2 = m*log2(e) + log2(l):
+// +inf where l == 0 (a row with no live key gets zero gradients) and on the
+// pad rows past Sq, so P is 0 there with no mask.
 //
-// Design on Hopper: no sequential grid and no atomics. K2 gives one block
-// of 8 warps to each (b*h, 64-row q tile) and loops over K/V tiles inside
-// the block, dq accumulating in WMMA registers; K3 gives one block to each
-// (b*h, 64-row k tile) and loops over q tiles, dk and dv accumulating in
-// registers. Score, dp and ds tiles live in shared memory (~144 KB per
-// block, dynamic, above the 48 KB static limit), each warp recomputing the
-// elementwise part of exactly the 16x32 region its own products wrote, so
-// only the products that cross warps need a block barrier. Ragged edges
-// are zero-filled and masked, as in the forward.
+// Bound on the H100 (B=1, H=16, S=8192, D=128, causal), tensor-core FLOPs at
+// 989 TFLOP/s dense bf16: K2 runs 3 products (s, dp, dq) of
+// 2*(S*S/2)*D*H = 1.37e11 FLOP each -> 0.417 ms; K3 runs 4 (s, dp, dv, dk)
+// -> 0.556 ms. Bytes (~0.2-0.3 GB) take under 0.1 ms at 3.35 TB/s, so both
+// are bound by operations.
 //
-// Bound on the H100 (B=1, H=16, S=8192, D=128, causal), tensor-core FLOPs
-// at 989 TFLOP/s dense bf16 (the TF32 products run at half that rate):
-// K2 runs 3 products (s, dp, dq) of 2*(S*S/2)*D*H = 1.37e11 FLOP each
-// -> 0.42 ms; K3 runs 4 (s, dp, dv, dk) -> 0.56 ms. Bytes (q, k, v bf16,
-// g f32, stats, f32 outputs) are ~0.2-0.3 GB -> under 0.1 ms, so both are
-// bound by operations. This simple version is far from that bound (no
-// copy pipelining, WMMA not wgmma, one block per SM for shared memory).
-#include "flash_common.cuh"
+// Design. Each block has three warpgroups: two consumers of 64 rows each and
+// a producer whose one thread issues every copy (setmaxnreg gives the
+// consumers 240 registers and the producer 24).
+//   K2: a block owns (b*h, 128 q rows). Q and g_b are loaded once; 64-row K
+//     and V tiles stream through a ring of STAGES buffers, each filled by TMA
+//     and completed on a "full" mbarrier, released by the consumers on an
+//     "empty" one. S = Q.K^T and dP = g_b.V^T are SS wgmma (both operands
+//     in shared memory); P and dS are built in registers from the
+//     accumulator fragments; dQ += dS.K is RS wgmma (A from registers, K
+//     read MN-major). dq stays in registers until the f32 store.
+//   K3: a block owns (b*h, 128 k rows). K and V are loaded once; 64-row Q
+//     and g_b tiles and their row stats (a bulk copy) stream through the
+//     ring. The transposed products S^T = K.Q^T and dP^T = V.g_b^T give
+//     accumulators with k rows, so P^T and dS^T feed dV += P^T.g_b and
+//     dK += dS^T.Q as RS wgmma directly. dk and dv stay in registers.
+//   In both, a consumer commits S and dP as two groups and computes P while
+//   dP runs on the tensor cores.
+// What this does about the four limits of the earlier WMMA version: copies
+// are asynchronous (TMA) and run ahead of the products by the ring's depth,
+// with no block barrier in the loop; every product is wgmma on 128-byte
+// swizzled tiles, with S, dP and dS never leaving registers; every operand
+// is bf16 (no TF32, no f32 V or g tile, no transposed copy: wgmma reads the
+// same bytes K-major or MN-major); and the block keeps ~130 KB of shared
+// memory at D=128, with K3 streaming the 2-byte g_b instead of rescaling
+// the f32 g of every q tile.
+//
+// No atomics and no second pass; runtime q_off/k_off; causal tiles are dead
+// (skipped), interior (unmasked) or diagonal (masked, P zeroed), per
+// consumer warpgroup; a ragged last K tile is zero-filled by TMA and masked.
+// Blocks are issued heaviest-first. Outputs are bit-identical across
+// launches (a fixed order of products per element).
+#include "hopper.cuh"
 
 namespace bft {
 
+using namespace hopper;
+
+constexpr int ROWS = 64;           // rows of one consumer warpgroup, of a streamed tile
+constexpr int BLOCK_ROWS = 128;    // rows a block owns (two consumer warpgroups)
+constexpr int STAGES = 2;          // depth of the copy ring
+constexpr int THREADS = 384;       // two consumer warpgroups + one producer
+constexpr int REGION_ROW = 128;    // bytes of one swizzled row: 64 bf16
+constexpr float LOG2E = 1.4426950408889634f;
+
+// Byte offsets into the (1024-aligned) dynamic shared memory: the two
+// 128-row operands loaded once (`big` each), then the ring, whose stages hold
+// two 64-row tiles (`tile` each) and K3's row stats, then the mbarriers.
 template <int D>
-struct BwdSmem {
-  static constexpr size_t a = 0;  // sQ (K2: the fixed q tile; K3: per step)
-  static constexpr size_t b = align128(a + sizeof(bf16) * 64 * Ld<D>::H16);  // sK
-  static constexpr size_t v = align128(b + sizeof(bf16) * 64 * Ld<D>::H16);  // sV f32
-  static constexpr size_t g = align128(v + sizeof(float) * 64 * Ld<D>::F32);  // g' f32
-  static constexpr size_t s = align128(g + sizeof(float) * 64 * Ld<D>::F32);
-  static constexpr size_t dp = align128(s + sizeof(float) * BQ * LDS);
-  static constexpr size_t ds = align128(dp + sizeof(float) * BQ * LDS);
-  static constexpr size_t stats = align128(ds + sizeof(bf16) * BQ * LDP);
-  static constexpr size_t bytes = align128(stats + sizeof(float) * 3 * BQ);
+struct BwdLayout {
+  static constexpr int NR = D / 64;                          // regions per row
+  static constexpr uint32_t big_region = BLOCK_ROWS * REGION_ROW;   // 16 KB
+  static constexpr uint32_t tile_region = ROWS * REGION_ROW;        // 8 KB
+  static constexpr uint32_t big = NR * big_region;           // one [128, D] tile
+  static constexpr uint32_t tile = NR * tile_region;         // one [64, D] tile
+  static constexpr uint32_t stats = ROWS * 8;                // (lse2, d) x 64 rows
+  static constexpr uint32_t stage = 2 * tile + 1024;         // two tiles + stats, aligned
+  static constexpr uint32_t ring = 2 * big;
+  static constexpr uint32_t bars = ring + STAGES * stage;
+  static constexpr uint32_t bytes = bars + 8 * (2 * STAGES + 1) + 1024;  // + alignment slack
 };
 
-// Row stats of the q tile: m, inv_l (0 where l == 0), d * inv_l.
-__device__ __forceinline__ void load_row_stats(float* sM, float* sIL, float* sDL,
-                                               const float* m, const float* l,
-                                               const float* d, long base, int H,
-                                               int valid) {
-  const int r = threadIdx.x;
-  if (r < BQ) {
-    float mv = 0.f, il = 0.f, dl = 0.f;
-    if (r < valid) {
-      const long idx = base + (long)r * H;
-      const float lv = l[idx];
-      mv = m[idx];
-      il = lv > 0.f ? 1.0f / lv : 0.f;
-      dl = d[idx] * il;
-    }
-    sM[r] = mv;
-    sIL[r] = il;
-    sDL[r] = dl;
-  }
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  const uint32_t a = smem_addr(p);
+  return p + ((1024 - (a & 1023)) & 1023);
 }
 
-// dp tile: warp (rw, ch) computes rows 16rw.., key columns 32ch.. of
-// g' . V^T on TF32 tensor cores into sDP.
-template <int D>
-__device__ __forceinline__ void scores_dp(float* sDP, const float* sG, const float* sV,
-                                          int rw, int ch) {
-  constexpr int LDF = Ld<D>::F32;
-  wmma::fragment<wmma::accumulator, 16, 16, 8, float> acc[2];
-  wmma::fill_fragment(acc[0], 0.f);
-  wmma::fill_fragment(acc[1], 0.f);
-#pragma unroll 4
-  for (int kk = 0; kk < D; kk += 8) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 8, wmma::precision::tf32, wmma::row_major> a;
-    wmma::load_matrix_sync(a, sG + 16 * rw * LDF + kk, LDF);
-    to_tf32(a);
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 8, wmma::precision::tf32, wmma::col_major> bv;
-      wmma::load_matrix_sync(bv, sV + (32 * ch + 16 * j) * LDF + kk, LDF);
-      to_tf32(bv);
-      wmma::mma_sync(acc[j], a, bv, acc[j]);
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < 2; ++j)
-    wmma::store_matrix_sync(sDP + 16 * rw * LDS + 32 * ch + 16 * j, acc[j], LDS,
-                            wmma::mem_row_major);
+// Number of 64-row tiles from the start of the other axis that meet the
+// causal past of `rows` rows starting at position `first`.
+__device__ __forceinline__ int live_prefix(int first, int rows, int other_off, int n) {
+  const int t = first + rows - 1 - other_off;
+  return t < 0 ? 0 : min(n, t / ROWS + 1);
 }
 
-// Elementwise recompute on warp (rw, ch)'s own 16x32 region: p (optionally
-// written back over s) and ds in bf16.
-__device__ __forceinline__ void probs_and_ds(float* sS, const float* sDP, bf16* sDS,
-                                             const float* sM, const float* sDL,
-                                             int rw, int ch, int lane, float scale,
-                                             bool masked, int q_first, int k_first,
-                                             int q_valid, int k_valid, bool keep_p) {
-  const int c = 32 * ch + lane;
-  for (int i = 0; i < 16; ++i) {
-    const int r = 16 * rw + i;
-    bool allowed = r < q_valid && c < k_valid;
-    if (masked) allowed = allowed && q_first + r >= k_first + c;
-    const float s = sS[r * LDS + c] * scale;
-    const float p = allowed ? expf(s - sM[r]) : 0.f;
-    const float ds = p * (sDP[r * LDS + c] - sDL[r]);
-    if (keep_p) sS[r * LDS + c] = p;
-    sDS[r * LDP + c] = __float2bfloat16(ds);
-  }
-}
+// ---------------------------------------------------------------------------
+// K2: dq
+// ---------------------------------------------------------------------------
 
 template <int D>
-__global__ void __launch_bounds__(NTHREADS)
-flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, const float* __restrict__ g,
-                    const float* __restrict__ m, const float* __restrict__ l,
-                    const float* __restrict__ d, float* __restrict__ dq, int Sq,
-                    int Sk, int H, int q_off, int k_off, int causal, float scale) {
-  constexpr int LDH = Ld<D>::H16;
-  constexpr int LDF = Ld<D>::F32;
-  constexpr int HALF = D / 2;
-  constexpr int NJ = HALF / 16;
-  using L = BwdSmem<D>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem + L::a);
-  bf16* sK = reinterpret_cast<bf16*>(smem + L::b);
-  float* sV = reinterpret_cast<float*>(smem + L::v);
-  float* sG = reinterpret_cast<float*>(smem + L::g);
-  float* sS = reinterpret_cast<float*>(smem + L::s);
-  float* sDP = reinterpret_cast<float*>(smem + L::dp);
-  bf16* sDS = reinterpret_cast<bf16*>(smem + L::ds);
-  float* sM = reinterpret_cast<float*>(smem + L::stats);
-  float* sIL = sM + BQ;
-  float* sDL = sIL + BQ;
+__global__ void __launch_bounds__(THREADS, 1)
+flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
+                    const __grid_constant__ CUtensorMap tm_k,
+                    const __grid_constant__ CUtensorMap tm_v,
+                    const __grid_constant__ CUtensorMap tm_g,
+                    const float2* __restrict__ stats, float* __restrict__ dq, int Sq,
+                    int Sk, int Sq_pad, int H, int q_off, int k_off, int causal,
+                    float scale) {
+  using L = BwdLayout<D>;
+  constexpr int NR = L::NR;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  const uint32_t base = smem_addr(smem);
+  const uint32_t sQ = base, sG = base + L::big;
+  const uint32_t full = base + L::bars, empty = full + 8 * STAGES, once = empty + 8 * STAGES;
 
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int rw = warp & 3, ch = warp >> 2;
-  const int qi = gridDim.x - 1 - blockIdx.x;  // heaviest causal tiles first
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const long stride = (long)H * D;
-  const int q0 = qi * BQ;
-  const int q_valid = min(BQ, Sq - q0);
-  const int q_first = q_off + q0;
-  const long qrow = ((long)b * Sq + q0) * stride + (long)h * D;
-  const bf16* kbase = k + (long)b * Sk * stride + (long)h * D;
-  const bf16* vbase = v + (long)b * Sk * stride + (long)h * D;
+  const int qt = gridDim.y - 1 - blockIdx.y;  // heaviest causal tiles first
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int q0 = qt * BLOCK_ROWS;
+  const int nk = (Sk + ROWS - 1) / ROWS;
+  const int n_iter = causal ? live_prefix(q_off + q0, BLOCK_ROWS, k_off, nk) : nk;
 
-  load_row_stats(sM, sIL, sDL, m, l, d, ((long)b * Sq + q0) * H + h, H, q_valid);
-  load_rows_bf16<D>(sQ, q + qrow, stride, q_valid);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 8);  // one arrival per consumer warp
+    }
+    mbar_init(once, 1);
+    fence_barrier_init();
+  }
   __syncthreads();
-  load_rows_f32_scaled<D>(sG, g + qrow, stride, q_valid, sIL);
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[NJ];
-#pragma unroll
-  for (int j = 0; j < NJ; ++j) wmma::fill_fragment(acc[j], 0.f);
-
-  const int nk = (Sk + BK - 1) / BK;
-  for (int kj = 0; kj < nk; ++kj) {
-    const int k_first = k_off + kj * BK;
-    bool masked = false;
-    if (causal) {
-      if (!tile_live(q_first, k_first)) break;  // later tiles are dead too
-      masked = !tile_interior(q_first, k_first);
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {  // producer
+    reg_dealloc<24>();
+    if (threadIdx.x == 256 && n_iter > 0) {
+      mbar_arrive_expect_tx(once, 2 * L::big);
+      for (int r = 0; r < NR; ++r) {
+        tma_load_4d(sQ + r * L::big_region, &tm_q, once, 64 * r, h, q0, b);
+        tma_load_4d(sG + r * L::big_region, &tm_g, once, 64 * r, h, q0, b);
+      }
+      for (int it = 0; it < n_iter; ++it) {
+        const int s = it % STAGES;
+        mbar_wait(empty + 8 * s, ((it / STAGES) & 1) ^ 1);
+        const uint32_t sK = base + L::ring + s * L::stage, sV = sK + L::tile;
+        mbar_arrive_expect_tx(full + 8 * s, 2 * L::tile);
+        for (int r = 0; r < NR; ++r) {
+          tma_load_4d(sK + r * L::tile_region, &tm_k, full + 8 * s, 64 * r, h, it * ROWS, b);
+          tma_load_4d(sV + r * L::tile_region, &tm_v, full + 8 * s, 64 * r, h, it * ROWS, b);
+        }
+      }
     }
-    const int k_valid = min(BK, Sk - kj * BK);
-    __syncthreads();  // the previous tile's readers of sK/sV/sDS are done
-    load_rows_bf16<D>(sK, kbase + (long)kj * BK * stride, stride, k_valid);
-    load_rows_bf16_as_f32<D>(sV, vbase + (long)kj * BK * stride, stride, k_valid);
-    __syncthreads();
-    scores_qk<D>(sS, sQ, sK, rw, ch);
-    scores_dp<D>(sDP, sG, sV, rw, ch);
-    __syncwarp();
-    probs_and_ds(sS, sDP, sDS, sM, sDL, rw, ch, lane, scale, masked, q_first,
-                 k_first, q_valid, k_valid, false);
-    __syncthreads();
-    // dq += ds . K on warp (rw, ch)'s rows 16rw.., columns ch*D/2..
+  } else {  // consumers: warpgroup wg owns q rows q0 + 64*wg ..
+    reg_alloc<240>();
+    const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+    const int row = 64 * wg + 16 * warp + lane / 4;  // and row + 8
+    const float2 st_lo = stats[(size_t)bh * Sq_pad + q0 + row];
+    const float2 st_hi = stats[(size_t)bh * Sq_pad + q0 + row + 8];
+    const int qw_first = q_off + q0 + 64 * wg;
+    const int qpos = q_off + q0 + row;
+    const float c = scale * LOG2E;
+    const uint32_t aQ = sQ + 64 * wg * REGION_ROW, aG = sG + 64 * wg * REGION_ROW;
+
+    float acc[D / 2];
 #pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-      wmma::load_matrix_sync(a, sDS + 16 * rw * LDP + kk, LDP);
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+    if (n_iter > 0) mbar_wait(once, 0);
+    for (int it = 0; it < n_iter; ++it) {
+      const int s = it % STAGES;
+      const uint32_t sK = base + L::ring + s * L::stage, sV = sK + L::tile;
+      const int k_first = k_off + it * ROWS;
+      const int k_valid = min(ROWS, Sk - it * ROWS);
+      mbar_wait(full + 8 * s, (it / STAGES) & 1);
+      if (!causal || k_first <= qw_first + ROWS - 1) {  // live for this warpgroup
+        const bool masked =
+            k_valid < ROWS || (causal && k_first + ROWS - 1 > qw_first);
+        float sc[32], dp[32];
+        wgmma_fence();
 #pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bk;
-        wmma::load_matrix_sync(bk, sK + kk * LDH + ch * HALF + 16 * j, LDH);
-        wmma::mma_sync(acc[j], a, bk, acc[j]);
+        for (int ks = 0; ks < D / 16; ++ks) {
+          const uint32_t off = (ks % 4) * 32;
+          wgmma_ss_n64<0>(sc, desc_k_major(aQ + (ks / 4) * L::big_region + off),
+                          desc_k_major(sK + (ks / 4) * L::tile_region + off), ks > 0);
+        }
+        wgmma_commit();
+#pragma unroll
+        for (int ks = 0; ks < D / 16; ++ks) {
+          const uint32_t off = (ks % 4) * 32;
+          wgmma_ss_n64<0>(dp, desc_k_major(aG + (ks / 4) * L::big_region + off),
+                          desc_k_major(sV + (ks / 4) * L::tile_region + off), ks > 0);
+        }
+        wgmma_commit();
+        wgmma_wait<1>();  // S is done; P is computed while dP runs
+        fence_regs(sc);
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const bool hi = (i / 2) % 2;
+          float p = ex2(fmaf(sc[i], c, -(hi ? st_hi.x : st_lo.x)));
+          if (masked) {
+            const int col = 8 * (i / 4) + 2 * (lane % 4) + (i % 2);
+            if (col >= k_valid || (causal && qpos + 8 * hi < k_first + col)) p = 0.f;
+          }
+          sc[i] = p;
+        }
+        wgmma_wait<0>();
+        fence_regs(dp);
+#pragma unroll
+        for (int i = 0; i < 32; ++i) sc[i] *= dp[i] - ((i / 2) % 2 ? st_hi.y : st_lo.y);  // dS
+        uint32_t a[4][4];
+        to_a_frags(sc, a);
+        fence_regs(acc);
+        wgmma_fence();
+#pragma unroll
+        for (int t = 0; t < 4; ++t) {
+          const uint64_t db = desc_mn_major(sK + t * 16 * REGION_ROW, L::tile_region);
+          if constexpr (D == 128)
+            wgmma_rs_n128<1>(acc, a[t], db, 1);
+          else
+            wgmma_rs_n64<1>(acc, a[t], db, 1);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(acc);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + 8 * s);
+    }
+
+    // f32 store: element i at row (+8 for (i/2)%2), column 8*(i/4) + 2*(lane%4)
+    const long stride = (long)H * D;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = q0 + row + 8 * half;
+      if (r < Sq) {
+        float* out = dq + ((long)b * Sq + r) * stride + (long)h * D + 2 * (lane % 4);
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j)
+          *reinterpret_cast<float2*>(out + 8 * j) =
+              make_float2(acc[4 * j + 2 * half] * scale, acc[4 * j + 2 * half + 1] * scale);
       }
     }
   }
-  __syncthreads();  // sG becomes the output staging tile
-#pragma unroll
-  for (int j = 0; j < NJ; ++j) {
-#pragma unroll
-    for (int t = 0; t < acc[j].num_elements; ++t) acc[j].x[t] *= scale;
-    wmma::store_matrix_sync(sG + 16 * rw * LDF + ch * HALF + 16 * j, acc[j], LDF,
-                            wmma::mem_row_major);
-  }
-  __syncthreads();
-  store_rows_f32<D>(dq + qrow, sG, stride, q_valid);
 }
+
+// ---------------------------------------------------------------------------
+// K3: dk, dv
+// ---------------------------------------------------------------------------
 
 template <int D>
-__global__ void __launch_bounds__(NTHREADS)
-flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, const float* __restrict__ g,
-                     const float* __restrict__ m, const float* __restrict__ l,
-                     const float* __restrict__ d, float* __restrict__ dk,
-                     float* __restrict__ dv, int Sq, int Sk, int H, int q_off,
-                     int k_off, int causal, float scale) {
-  constexpr int LDH = Ld<D>::H16;
-  constexpr int LDF = Ld<D>::F32;
-  constexpr int HALF = D / 2;
-  constexpr int NJ = HALF / 16;
-  using L = BwdSmem<D>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem + L::a);
-  bf16* sK = reinterpret_cast<bf16*>(smem + L::b);
-  float* sV = reinterpret_cast<float*>(smem + L::v);
-  float* sG = reinterpret_cast<float*>(smem + L::g);
-  float* sS = reinterpret_cast<float*>(smem + L::s);
-  float* sDP = reinterpret_cast<float*>(smem + L::dp);
-  bf16* sDS = reinterpret_cast<bf16*>(smem + L::ds);
-  float* sM = reinterpret_cast<float*>(smem + L::stats);
-  float* sIL = sM + BQ;
-  float* sDL = sIL + BQ;
+__global__ void __launch_bounds__(THREADS, 1)
+flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
+                     const __grid_constant__ CUtensorMap tm_k,
+                     const __grid_constant__ CUtensorMap tm_v,
+                     const __grid_constant__ CUtensorMap tm_g,
+                     const float2* __restrict__ stats, float* __restrict__ dk,
+                     float* __restrict__ dv, int Sq, int Sk, int Sq_pad, int H,
+                     int q_off, int k_off, int causal, float scale) {
+  using L = BwdLayout<D>;
+  constexpr int NR = L::NR;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  const uint32_t base = smem_addr(smem);
+  const uint32_t sK = base, sV = base + L::big;
+  const uint32_t full = base + L::bars, empty = full + 8 * STAGES, once = empty + 8 * STAGES;
 
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int rw = warp & 3, ch = warp >> 2;
-  const int kj = blockIdx.x;  // low k tiles carry the most causal work
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const long stride = (long)H * D;
-  const int k0 = kj * BK;
-  const int k_valid = min(BK, Sk - k0);
-  const int k_first = k_off + k0;
-  const long krow = ((long)b * Sk + k0) * stride + (long)h * D;
-
-  load_rows_bf16<D>(sK, k + krow, stride, k_valid);
-  load_rows_bf16_as_f32<D>(sV, v + krow, stride, k_valid);
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc_dk[NJ];
-  wmma::fragment<wmma::accumulator, 16, 16, 8, float> acc_dv[NJ];
-#pragma unroll
-  for (int j = 0; j < NJ; ++j) {
-    wmma::fill_fragment(acc_dk[j], 0.f);
-    wmma::fill_fragment(acc_dv[j], 0.f);
+  const int kt = blockIdx.y;  // low k tiles carry the most causal work
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int k0 = kt * BLOCK_ROWS;
+  const int nq = (Sq + ROWS - 1) / ROWS;
+  // live q tiles form a suffix: the first one whose last row reaches k0
+  int qi0 = 0;
+  if (causal) {
+    const int t = k_off + k0 - q_off - (ROWS - 1);
+    qi0 = t <= 0 ? 0 : min(nq, (t + ROWS - 1) / ROWS);
   }
+  const int n_iter = nq - qi0;
 
-  const int nq = (Sq + BQ - 1) / BQ;
-  for (int qi = 0; qi < nq; ++qi) {
-    const int q0 = qi * BQ;
-    const int q_first = q_off + q0;
-    bool masked = false;
-    if (causal) {
-      if (!tile_live(q_first, k_first)) continue;  // whole k tile in the future
-      masked = !tile_interior(q_first, k_first);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 8);
     }
-    const int q_valid = min(BQ, Sq - q0);
-    const long qrow = ((long)b * Sq + q0) * stride + (long)h * D;
-    __syncthreads();  // the previous step's readers of sQ/sG/sS/sDS are done
-    load_row_stats(sM, sIL, sDL, m, l, d, ((long)b * Sq + q0) * H + h, H, q_valid);
-    load_rows_bf16<D>(sQ, q + qrow, stride, q_valid);
-    __syncthreads();
-    load_rows_f32_scaled<D>(sG, g + qrow, stride, q_valid, sIL);
-    __syncthreads();
-    scores_qk<D>(sS, sQ, sK, rw, ch);
-    scores_dp<D>(sDP, sG, sV, rw, ch);
-    __syncwarp();
-    probs_and_ds(sS, sDP, sDS, sM, sDL, rw, ch, lane, scale, masked, q_first,
-                 k_first, q_valid, k_valid, true);
-    __syncthreads();
-    // warp (rw, ch) owns k rows 16rw.., columns ch*D/2.. of dk and dv
-#pragma unroll
-    for (int kk = 0; kk < BQ; kk += 8) {  // dv += p^T . g'  (TF32)
-      wmma::fragment<wmma::matrix_a, 16, 16, 8, wmma::precision::tf32, wmma::col_major> a;
-      wmma::load_matrix_sync(a, sS + kk * LDS + 16 * rw, LDS);
-      to_tf32(a);
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 8, wmma::precision::tf32, wmma::row_major> bg;
-        wmma::load_matrix_sync(bg, sG + kk * LDF + ch * HALF + 16 * j, LDF);
-        to_tf32(bg);
-        wmma::mma_sync(acc_dv[j], a, bg, acc_dv[j]);
+    mbar_init(once, 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {  // producer
+    reg_dealloc<24>();
+    if (threadIdx.x == 256 && n_iter > 0) {
+      mbar_arrive_expect_tx(once, 2 * L::big);
+      for (int r = 0; r < NR; ++r) {
+        tma_load_4d(sK + r * L::big_region, &tm_k, once, 64 * r, h, k0, b);
+        tma_load_4d(sV + r * L::big_region, &tm_v, once, 64 * r, h, k0, b);
+      }
+      for (int it = 0; it < n_iter; ++it) {
+        const int s = it % STAGES;
+        const int q0 = (qi0 + it) * ROWS;
+        mbar_wait(empty + 8 * s, ((it / STAGES) & 1) ^ 1);
+        const uint32_t sQ = base + L::ring + s * L::stage, sG = sQ + L::tile;
+        mbar_arrive_expect_tx(full + 8 * s, 2 * L::tile + L::stats);
+        for (int r = 0; r < NR; ++r) {
+          tma_load_4d(sQ + r * L::tile_region, &tm_q, full + 8 * s, 64 * r, h, q0, b);
+          tma_load_4d(sG + r * L::tile_region, &tm_g, full + 8 * s, 64 * r, h, q0, b);
+        }
+        bulk_load(sG + L::tile, stats + (size_t)bh * Sq_pad + q0, L::stats, full + 8 * s);
       }
     }
+  } else {  // consumers: warpgroup wg owns k rows k0 + 64*wg ..
+    reg_alloc<240>();
+    const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+    const int row = 64 * wg + 16 * warp + lane / 4;  // and row + 8
+    const int kw_first = k_off + k0 + 64 * wg;
+    const int kpos = k_off + k0 + row;
+    const float c = scale * LOG2E;
+    const uint32_t aK = sK + 64 * wg * REGION_ROW, aV = sV + 64 * wg * REGION_ROW;
+
+    float acc_dk[D / 2], acc_dv[D / 2];
 #pragma unroll
-    for (int kk = 0; kk < BQ; kk += 16) {  // dk += ds^T . q  (bf16)
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> a;
-      wmma::load_matrix_sync(a, sDS + kk * LDP + 16 * rw, LDP);
+    for (int i = 0; i < D / 2; ++i) acc_dk[i] = acc_dv[i] = 0.f;
+
+    if (n_iter > 0) mbar_wait(once, 0);
+    for (int it = 0; it < n_iter; ++it) {
+      const int s = it % STAGES;
+      const uint32_t sQ = base + L::ring + s * L::stage, sG = sQ + L::tile;
+      const float2* st = reinterpret_cast<const float2*>(smem + L::ring + s * L::stage +
+                                                         2 * L::tile);
+      const int q_first = q_off + (qi0 + it) * ROWS;
+      mbar_wait(full + 8 * s, (it / STAGES) & 1);
+      if (!causal || kw_first <= q_first + ROWS - 1) {  // live for this warpgroup
+        const bool masked = causal && kw_first + ROWS - 1 > q_first;
+        float sc[32], dp[32];  // S^T, dP^T: k rows x q columns
+        wgmma_fence();
 #pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bq;
-        wmma::load_matrix_sync(bq, sQ + kk * LDH + ch * HALF + 16 * j, LDH);
-        wmma::mma_sync(acc_dk[j], a, bq, acc_dk[j]);
+        for (int ks = 0; ks < D / 16; ++ks) {
+          const uint32_t off = (ks % 4) * 32;
+          wgmma_ss_n64<0>(sc, desc_k_major(aK + (ks / 4) * L::big_region + off),
+                          desc_k_major(sQ + (ks / 4) * L::tile_region + off), ks > 0);
+        }
+        wgmma_commit();
+#pragma unroll
+        for (int ks = 0; ks < D / 16; ++ks) {
+          const uint32_t off = (ks % 4) * 32;
+          wgmma_ss_n64<0>(dp, desc_k_major(aV + (ks / 4) * L::big_region + off),
+                          desc_k_major(sG + (ks / 4) * L::tile_region + off), ks > 0);
+        }
+        wgmma_commit();
+        wgmma_wait<1>();  // S^T is done; P^T is computed while dP^T runs
+        fence_regs(sc);
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int col = 8 * (i / 4) + 2 * (lane % 4) + (i % 2);  // q row of the tile
+          float p = ex2(fmaf(sc[i], c, -st[col].x));
+          if (masked && q_first + col < kpos + 8 * ((i / 2) % 2)) p = 0.f;
+          sc[i] = p;
+        }
+        wgmma_wait<0>();
+        fence_regs(dp);
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int col = 8 * (i / 4) + 2 * (lane % 4) + (i % 2);
+          dp[i] = sc[i] * (dp[i] - st[col].y);  // dS^T
+        }
+        uint32_t ap[4][4], ads[4][4];
+        to_a_frags(sc, ap);
+        to_a_frags(dp, ads);
+        fence_regs(acc_dv);
+        fence_regs(acc_dk);
+        wgmma_fence();
+#pragma unroll
+        for (int t = 0; t < 4; ++t) {
+          const uint64_t dg = desc_mn_major(sG + t * 16 * REGION_ROW, L::tile_region);
+          const uint64_t dqd = desc_mn_major(sQ + t * 16 * REGION_ROW, L::tile_region);
+          if constexpr (D == 128) {
+            wgmma_rs_n128<1>(acc_dv, ap[t], dg, 1);
+            wgmma_rs_n128<1>(acc_dk, ads[t], dqd, 1);
+          } else {
+            wgmma_rs_n64<1>(acc_dv, ap[t], dg, 1);
+            wgmma_rs_n64<1>(acc_dk, ads[t], dqd, 1);
+          }
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(acc_dv);
+        fence_regs(acc_dk);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + 8 * s);
+    }
+
+    const long stride = (long)H * D;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = k0 + row + 8 * half;
+      if (r < Sk) {
+        const long at = ((long)b * Sk + r) * stride + (long)h * D + 2 * (lane % 4);
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j) {
+          const int i = 4 * j + 2 * half;
+          *reinterpret_cast<float2*>(dk + at + 8 * j) =
+              make_float2(acc_dk[i] * scale, acc_dk[i + 1] * scale);
+          *reinterpret_cast<float2*>(dv + at + 8 * j) = make_float2(acc_dv[i], acc_dv[i + 1]);
+        }
       }
     }
   }
-  __syncthreads();  // sG becomes the output staging tile
-#pragma unroll
-  for (int j = 0; j < NJ; ++j) {
-#pragma unroll
-    for (int t = 0; t < acc_dk[j].num_elements; ++t) acc_dk[j].x[t] *= scale;
-    wmma::store_matrix_sync(sG + 16 * rw * LDF + ch * HALF + 16 * j, acc_dk[j], LDF,
-                            wmma::mem_row_major);
-  }
-  __syncthreads();
-  store_rows_f32<D>(dk + krow, sG, stride, k_valid);
-  __syncthreads();
-#pragma unroll
-  for (int j = 0; j < NJ; ++j)
-    wmma::store_matrix_sync(sG + 16 * rw * LDF + ch * HALF + 16 * j, acc_dv[j], LDF,
-                            wmma::mem_row_major);
-  __syncthreads();
-  store_rows_f32<D>(dv + krow, sG, stride, k_valid);
 }
 
-template <typename Kernel>
-static int prepare(Kernel kernel, size_t bytes) {
-  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   (int)bytes);
+// ---------------------------------------------------------------------------
+// host side
+// ---------------------------------------------------------------------------
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver the runtime already loaded, so the
+// library needs no -lcuda.
+static EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                       cudaEnableDefault, &found);
+#else
+    cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
 }
+
+// Tensor map over a bf16 [B, S, H, D] tensor: boxes of 64 columns x 1 head x
+// `rows` rows, 128-byte swizzle; rows past S read as zeros.
+static int make_map(CUtensorMap* map, const void* ptr, int B, int S, int H, int D,
+                    int rows) {
+  EncodeTiled fn = encode_tiled();
+  if (!fn) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)H * D * 2,
+                                 (cuuint64_t)S * H * D * 2};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t estr[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+                        dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+static int pad_rows(int S) { return (S + BLOCK_ROWS - 1) / BLOCK_ROWS * BLOCK_ROWS; }
 
 template <int D>
-static int launch_dq(const void* q, const void* k, const void* v, const void* g,
-                     const void* m, const void* l, const void* d, void* dq, int B,
-                     int Sq, int Sk, int H, int q_off, int k_off, int causal,
-                     float scale, cudaStream_t stream) {
-  const size_t bytes = BwdSmem<D>::bytes;
-  int err = prepare(flash_bwd_dq_kernel<D>, bytes);
+static int launch_dq(const void* q, const void* k, const void* v, const void* g_b,
+                     const void* stats, void* dq, int B, int Sq, int Sk, int H,
+                     int q_off, int k_off, int causal, float scale, cudaStream_t stream) {
+  CUtensorMap mq, mk, mv, mg;
+  int err = make_map(&mq, q, B, Sq, H, D, BLOCK_ROWS);
+  if (!err) err = make_map(&mk, k, B, Sk, H, D, ROWS);
+  if (!err) err = make_map(&mv, v, B, Sk, H, D, ROWS);
+  if (!err) err = make_map(&mg, g_b, B, Sq, H, D, BLOCK_ROWS);
   if (err) return err;
-  const dim3 grid((Sq + BQ - 1) / BQ, B * H);
-  flash_bwd_dq_kernel<D><<<grid, NTHREADS, bytes, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const float*>(g),
-      static_cast<const float*>(m), static_cast<const float*>(l),
-      static_cast<const float*>(d), static_cast<float*>(dq), Sq, Sk, H, q_off, k_off,
-      causal, scale);
+  const uint32_t bytes = BwdLayout<D>::bytes;
+  err = (int)cudaFuncSetAttribute(flash_bwd_dq_kernel<D>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err) return err;
+  const dim3 grid(B * H, (Sq + BLOCK_ROWS - 1) / BLOCK_ROWS);
+  flash_bwd_dq_kernel<D><<<grid, THREADS, bytes, stream>>>(
+      mq, mk, mv, mg, static_cast<const float2*>(stats), static_cast<float*>(dq), Sq, Sk,
+      pad_rows(Sq), H, q_off, k_off, causal, scale);
   return (int)cudaGetLastError();
 }
 
 template <int D>
-static int launch_dkv(const void* q, const void* k, const void* v, const void* g,
-                      const void* m, const void* l, const void* d, void* dk, void* dv,
-                      int B, int Sq, int Sk, int H, int q_off, int k_off, int causal,
-                      float scale, cudaStream_t stream) {
-  const size_t bytes = BwdSmem<D>::bytes;
-  int err = prepare(flash_bwd_dkv_kernel<D>, bytes);
+static int launch_dkv(const void* q, const void* k, const void* v, const void* g_b,
+                      const void* stats, void* dk, void* dv, int B, int Sq, int Sk, int H,
+                      int q_off, int k_off, int causal, float scale,
+                      cudaStream_t stream) {
+  CUtensorMap mq, mk, mv, mg;
+  int err = make_map(&mq, q, B, Sq, H, D, ROWS);
+  if (!err) err = make_map(&mk, k, B, Sk, H, D, BLOCK_ROWS);
+  if (!err) err = make_map(&mv, v, B, Sk, H, D, BLOCK_ROWS);
+  if (!err) err = make_map(&mg, g_b, B, Sq, H, D, ROWS);
   if (err) return err;
-  const dim3 grid((Sk + BK - 1) / BK, B * H);
-  flash_bwd_dkv_kernel<D><<<grid, NTHREADS, bytes, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const float*>(g),
-      static_cast<const float*>(m), static_cast<const float*>(l),
-      static_cast<const float*>(d), static_cast<float*>(dk), static_cast<float*>(dv),
-      Sq, Sk, H, q_off, k_off, causal, scale);
+  const uint32_t bytes = BwdLayout<D>::bytes;
+  err = (int)cudaFuncSetAttribute(flash_bwd_dkv_kernel<D>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err) return err;
+  const dim3 grid(B * H, (Sk + BLOCK_ROWS - 1) / BLOCK_ROWS);
+  flash_bwd_dkv_kernel<D><<<grid, THREADS, bytes, stream>>>(
+      mq, mk, mv, mg, static_cast<const float2*>(stats), static_cast<float*>(dk),
+      static_cast<float*>(dv), Sq, Sk, pad_rows(Sq), H, q_off, k_off, causal, scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace bft
 
+// g_b: bf16 [B, Sq, H, D]; stats: f32 [B*H, Sq_pad, 2] (lse2, d), Sq_pad = Sq
+// rounded up to 128 (flash.py `_bwd_operands`).
 extern "C" int bft_flash_bwd_dq(const void* q, const void* k, const void* v,
-                                const void* g, const void* m, const void* l,
-                                const void* d, void* dq, int B, int Sq, int Sk, int H,
-                                int D, int q_off, int k_off, int causal, float scale,
-                                void* stream) {
+                                const void* g_b, const void* stats, void* dq, int B,
+                                int Sq, int Sk, int H, int D, int q_off, int k_off,
+                                int causal, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D == 64)
-    return bft::launch_dq<64>(q, k, v, g, m, l, d, dq, B, Sq, Sk, H, q_off, k_off,
-                              causal, scale, s);
+    return bft::launch_dq<64>(q, k, v, g_b, stats, dq, B, Sq, Sk, H, q_off, k_off, causal,
+                              scale, s);
   if (D == 128)
-    return bft::launch_dq<128>(q, k, v, g, m, l, d, dq, B, Sq, Sk, H, q_off, k_off,
-                               causal, scale, s);
+    return bft::launch_dq<128>(q, k, v, g_b, stats, dq, B, Sq, Sk, H, q_off, k_off, causal,
+                               scale, s);
   return (int)cudaErrorInvalidValue;
 }
 
 extern "C" int bft_flash_bwd_dkv(const void* q, const void* k, const void* v,
-                                 const void* g, const void* m, const void* l,
-                                 const void* d, void* dk, void* dv, int B, int Sq,
-                                 int Sk, int H, int D, int q_off, int k_off,
+                                 const void* g_b, const void* stats, void* dk, void* dv,
+                                 int B, int Sq, int Sk, int H, int D, int q_off, int k_off,
                                  int causal, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D == 64)
-    return bft::launch_dkv<64>(q, k, v, g, m, l, d, dk, dv, B, Sq, Sk, H, q_off,
-                               k_off, causal, scale, s);
+    return bft::launch_dkv<64>(q, k, v, g_b, stats, dk, dv, B, Sq, Sk, H, q_off, k_off,
+                               causal, scale, s);
   if (D == 128)
-    return bft::launch_dkv<128>(q, k, v, g, m, l, d, dk, dv, B, Sq, Sk, H, q_off,
-                                k_off, causal, scale, s);
+    return bft::launch_dkv<128>(q, k, v, g_b, stats, dk, dv, B, Sq, Sk, H, q_off, k_off,
+                                causal, scale, s);
   return (int)cudaErrorInvalidValue;
 }

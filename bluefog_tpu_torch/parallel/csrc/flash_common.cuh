@@ -1,4 +1,4 @@
-// Shared pieces of the flash-attention kernels (flash_fwd.cu, flash_bwd.cu).
+// Shared pieces of the WMMA flash-attention forward kernel (flash_fwd.cu).
 //
 // Layout: q/k/v/g are [B, S, H, D] row-major ("bshd", the port's public
 // layout), read in place through the row stride H*D — no transposes. Row
@@ -60,51 +60,6 @@ __device__ __forceinline__ void load_rows_bf16(bf16* dst, const bf16* src,
   }
 }
 
-// 64 rows of D bf16 -> f32 smem [64][D+4] (operand of a TF32 product).
-template <int D>
-__device__ __forceinline__ void load_rows_bf16_as_f32(float* dst, const bf16* src,
-                                                      long stride, int valid) {
-  constexpr int CH = D / 8;
-  for (int i = threadIdx.x; i < 64 * CH; i += NTHREADS) {
-    const int r = i / CH, c = i % CH;
-    float f[8];
-    if (r < valid) {
-      const uint4 val = *reinterpret_cast<const uint4*>(src + r * stride + c * 8);
-      const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&val);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float2 t = __bfloat1622float2(h[j]);
-        f[2 * j] = t.x;
-        f[2 * j + 1] = t.y;
-      }
-    } else {
-#pragma unroll
-      for (int j = 0; j < 8; ++j) f[j] = 0.f;
-    }
-    float* d = dst + r * Ld<D>::F32 + c * 8;
-    *reinterpret_cast<float4*>(d) = make_float4(f[0], f[1], f[2], f[3]);
-    *reinterpret_cast<float4*>(d + 4) = make_float4(f[4], f[5], f[6], f[7]);
-  }
-}
-
-// 64 rows of D f32, each row multiplied by row_scale[r] -> smem [64][D+4].
-template <int D>
-__device__ __forceinline__ void load_rows_f32_scaled(float* dst, const float* src,
-                                                     long stride, int valid,
-                                                     const float* row_scale) {
-  constexpr int CH = D / 4;
-  for (int i = threadIdx.x; i < 64 * CH; i += NTHREADS) {
-    const int r = i / CH, c = i % CH;
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r < valid) {
-      val = *reinterpret_cast<const float4*>(src + r * stride + c * 4);
-      const float s = row_scale[r];
-      val.x *= s; val.y *= s; val.z *= s; val.w *= s;
-    }
-    *reinterpret_cast<float4*>(dst + r * Ld<D>::F32 + c * 4) = val;
-  }
-}
-
 // smem f32 [64][D+4] -> the first `valid` rows at dst + r*stride.
 template <int D>
 __device__ __forceinline__ void store_rows_f32(float* dst, const float* src,
@@ -117,10 +72,11 @@ __device__ __forceinline__ void store_rows_f32(float* dst, const float* src,
   }
 }
 
-// Causal tile classes, the JAX predicates (flash.py:138-143, _bwd_live /
-// _bwd_interior :270-280): a tile pair is LIVE unless the whole key tile
-// lies after the last query row, and INTERIOR (no mask needed) when the
-// whole key tile lies at or before the first query row.
+// Causal tile classes of 64x64 tiles, the JAX predicates (flash.py:138-143):
+// a tile pair is LIVE unless the whole key tile lies after the last query
+// row, and INTERIOR (no mask needed) when the whole key tile lies at or
+// before the first query row. (The backward kernels, flash_bwd.cu, use
+// their own tile sizes.)
 __device__ __forceinline__ bool tile_live(int q_first, int k_first) {
   return k_first <= q_first + BQ - 1;
 }
@@ -152,12 +108,6 @@ __device__ __forceinline__ void scores_qk(float* sS, const bf16* sQ, const bf16*
   for (int j = 0; j < 2; ++j)
     wmma::store_matrix_sync(sS + 16 * rw * LDS + 32 * ch + 16 * j, acc[j], LDS,
                             wmma::mem_row_major);
-}
-
-template <typename Frag>
-__device__ __forceinline__ void to_tf32(Frag& f) {
-#pragma unroll
-  for (int t = 0; t < f.num_elements; ++t) f.x[t] = wmma::__float_to_tf32(f.x[t]);
 }
 
 }  // namespace bft

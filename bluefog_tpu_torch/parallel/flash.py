@@ -17,7 +17,9 @@ nowhere else, so a run can show that its path went through the kernels.
 Layout is ``[B, S, H, D]`` throughout; m/l/d are ``[B, S, H]`` f32 (the TPU
 kernels' lane-8 padding is gone). The kernels take bf16 q/k/v and D in
 {64, 128}; the gradient ``g`` of the backward is f32, as ``_flash_bwd``
-passes it.
+passes it. The backward kernels read it rounded to bf16 (exact on the main
+path, where g is the widened cotangent of a bf16 output), with the row
+stats packed per head (``_bwd_operands``).
 """
 
 from __future__ import annotations
@@ -32,6 +34,8 @@ from . import _build
 
 _NEG = -1e30
 _HEAD_DIMS = (64, 128)
+_LOG2E = 1.4426950408889634
+_BWD_ROWS = 128    # the backward kernels' block rows (csrc/flash_bwd.cu)
 
 launch_counts: Dict[str, int] = {
     "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
@@ -46,8 +50,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ARGTYPES = {
     "bft_flash_fwd": [_P] * 6 + [_I] * 8 + [ctypes.c_float, _P],
-    "bft_flash_bwd_dq": [_P] * 8 + [_I] * 8 + [ctypes.c_float, _P],
-    "bft_flash_bwd_dkv": [_P] * 9 + [_I] * 8 + [ctypes.c_float, _P],
+    "bft_flash_bwd_dq": [_P] * 6 + [_I] * 8 + [ctypes.c_float, _P],
+    "bft_flash_bwd_dkv": [_P] * 7 + [_I] * 8 + [ctypes.c_float, _P],
 }
 
 
@@ -250,53 +254,91 @@ def flash_block_bwd(q, k, v, g, d_term, m, l, q_off: int = 0, k_off: int = 0,
     GLOBAL softmax stats ``m``, ``l``, all [B, Sq, H] f32. Returns
     (dq_partial, dk, dv) in f32.
     """
-    args = (q, k, v, g, d_term, m, l, q_off, k_off)
-    dq = flash_bwd_dq(*args, causal=causal)
-    dk, dv = flash_bwd_dkv(*args, causal=causal)
-    return dq, dk, dv
+    args = (q, k, v, g, d_term, m, l)
+    if _on_cpu(*args):
+        return flash_block_bwd_plain(*args, q_off, k_off, causal=causal)
+    ops = _bwd_operands(*args)
+    return (_bwd_dq(q, k, v, ops, q_off, k_off, causal),
+            *_bwd_dkv(q, k, v, ops, q_off, k_off, causal))
 
 
-def _bwd_operands(q, k, v, g, d_term, m, l, q_off, k_off, causal):
+def _bwd_stats(d_term, m, l):
+    """Row stats of the backward kernels, [B*H, Sq_pad, 2] f32 (lse2, d):
+    lse2 = m*log2(e) + log2(l), so that P = exp2(s*scale*log2(e) - lse2) =
+    exp(s*scale - m) / l. lse2 is +inf where l == 0 (inv_l = 0, ROADMAP
+    Queue 3) and on the pad rows up to a multiple of the kernels' 128 block
+    rows, so P is 0 there."""
+    B, Sq, H = m.shape
+    pad = -(-Sq // _BWD_ROWS) * _BWD_ROWS
+    lse2 = torch.where(l > 0, m * _LOG2E + torch.log2(l),
+                       torch.full_like(l, math.inf))
+    stats = torch.empty((B, H, pad, 2), dtype=torch.float32, device=m.device)
+    stats[:, :, :Sq, 0] = lse2.permute(0, 2, 1)
+    stats[:, :, :Sq, 1] = d_term.permute(0, 2, 1)
+    stats[:, :, Sq:, 0] = math.inf
+    stats[:, :, Sq:, 1] = 0.0
+    return stats
+
+
+def _bwd_operands(q, k, v, g, d_term, m, l):
+    """Checks the backward's operands and prepares what both kernels read:
+    ((B, Sq, Sk, H, D), g in bf16, the packed row stats)."""
     B, Sq, Sk, H, D = _check_qkv(q, k, v)
     _check("g", g, torch.float32, (B, Sq, H, D))
     for name, t in (("d_term", d_term), ("m", m), ("l", l)):
         _check(name, t, torch.float32, (B, Sq, H))
-    ptrs = [t.data_ptr() for t in (q, k, v, g, m, l, d_term)]
-    tail = (B, Sq, Sk, H, D, int(q_off), int(k_off), int(causal),
+    return (B, Sq, Sk, H, D), g.to(torch.bfloat16), _bwd_stats(d_term, m, l)
+
+
+def _bwd_tail(shape, q, q_off, k_off, causal):
+    B, Sq, Sk, H, D = shape
+    return (B, Sq, Sk, H, D, int(q_off), int(k_off), int(causal),
             1.0 / math.sqrt(D), _stream(q))
-    return (B, Sq, Sk, H, D), ptrs, tail
 
 
-def flash_bwd_dq(q, k, v, g, d_term, m, l, q_off: int = 0, k_off: int = 0,
-                 *, causal: bool = True):
-    """Pass 1 of :func:`flash_block_bwd` (K2): dq in f32."""
-    if _on_cpu(q, k, v, g, d_term, m, l):
-        return flash_bwd_dq_plain(q, k, v, g, d_term, m, l, q_off, k_off,
-                                  causal=causal)
-    (B, Sq, _, H, D), ptrs, tail = _bwd_operands(
-        q, k, v, g, d_term, m, l, q_off, k_off, causal)
+def _bwd_dq(q, k, v, ops, q_off, k_off, causal):
+    shape, g_b, stats = ops
+    B, Sq, _, H, D = shape
     dq = torch.empty((B, Sq, H, D), dtype=torch.float32, device=q.device)
-    err = _fn("flash_bwd", "bft_flash_bwd_dq")(*ptrs, dq.data_ptr(), *tail)
+    err = _fn("flash_bwd", "bft_flash_bwd_dq")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), g_b.data_ptr(),
+        stats.data_ptr(), dq.data_ptr(), *_bwd_tail(shape, q, q_off, k_off,
+                                                     causal))
     _raise_on(err, "bft_flash_bwd_dq")
     launch_counts["flash_bwd_dq"] += 1
     return dq
 
 
-def flash_bwd_dkv(q, k, v, g, d_term, m, l, q_off: int = 0, k_off: int = 0,
-                  *, causal: bool = True):
-    """Pass 2 of :func:`flash_block_bwd` (K3): (dk, dv) in f32."""
-    if _on_cpu(q, k, v, g, d_term, m, l):
-        return flash_bwd_dkv_plain(q, k, v, g, d_term, m, l, q_off, k_off,
-                                   causal=causal)
-    (B, _, Sk, H, D), ptrs, tail = _bwd_operands(
-        q, k, v, g, d_term, m, l, q_off, k_off, causal)
+def _bwd_dkv(q, k, v, ops, q_off, k_off, causal):
+    shape, g_b, stats = ops
+    B, _, Sk, H, D = shape
     dk = torch.empty((B, Sk, H, D), dtype=torch.float32, device=q.device)
     dv = torch.empty((B, Sk, H, D), dtype=torch.float32, device=q.device)
-    err = _fn("flash_bwd", "bft_flash_bwd_dkv")(*ptrs, dk.data_ptr(),
-                                                dv.data_ptr(), *tail)
+    err = _fn("flash_bwd", "bft_flash_bwd_dkv")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), g_b.data_ptr(),
+        stats.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        *_bwd_tail(shape, q, q_off, k_off, causal))
     _raise_on(err, "bft_flash_bwd_dkv")
     launch_counts["flash_bwd_dkv"] += 1
     return dk, dv
+
+
+def flash_bwd_dq(q, k, v, g, d_term, m, l, q_off: int = 0, k_off: int = 0,
+                 *, causal: bool = True):
+    """Pass 1 of :func:`flash_block_bwd` (K2): dq in f32."""
+    args = (q, k, v, g, d_term, m, l)
+    if _on_cpu(*args):
+        return flash_bwd_dq_plain(*args, q_off, k_off, causal=causal)
+    return _bwd_dq(q, k, v, _bwd_operands(*args), q_off, k_off, causal)
+
+
+def flash_bwd_dkv(q, k, v, g, d_term, m, l, q_off: int = 0, k_off: int = 0,
+                  *, causal: bool = True):
+    """Pass 2 of :func:`flash_block_bwd` (K3): (dk, dv) in f32."""
+    args = (q, k, v, g, d_term, m, l)
+    if _on_cpu(*args):
+        return flash_bwd_dkv_plain(*args, q_off, k_off, causal=causal)
+    return _bwd_dkv(q, k, v, _bwd_operands(*args), q_off, k_off, causal)
 
 
 class _Flash(torch.autograd.Function):

@@ -10,10 +10,12 @@ Phases (each raises on failure; the script then exits non-zero):
    checkout (``bluefog_tpu_torch/parallel/csrc``) and prints the seconds.
 3. kernels: each kernel (K1 forward, K2 dq, K3 dk/dv) against its plain
    PyTorch version on the card in bf16, B=1 H=16 D=128 S=1024, causal on
-   and off, offsets (0,0), (S,0), (0,S), plus a ragged S with D=64; then
-   at the main path's shape (S=8192) each kernel's time (CUDA events),
-   its plain version's time, the bound computed from the inputs, and the
-   time of ``scaled_dot_product_attention`` as a yardstick.
+   and off, offsets (0,0), (S,0), (0,S), (64,0), (0,64), (37,0); Sq=1024
+   against Sk=640; a ragged S with D=64; D=64 at S=8192. Then at the main
+   path's shape (S=8192): the errors, a repeat launch of K2 and K3 that
+   must match bit for bit, each kernel's time (CUDA events), its plain
+   version's time, the bound (``kernel_bounds``), and the time of
+   ``scaled_dot_product_attention`` as a yardstick.
 4. train: the port's main path — ``bf.init()`` (NCCL, world 1), the flash
    ``TransformerLM`` at the repo's headline width (d_model 2048, 16 heads
    of 128, d_ff 8192, vocab 32768, bf16 compute, f32 params) under
@@ -47,19 +49,18 @@ SEQ = 8192
 WARMUP = 2
 STEPS = 5
 
-# H100 SXM data-sheet peaks (dense): bf16 tensor cores, TF32 tensor cores,
-# HBM3 bandwidth.
+# H100 SXM data-sheet peaks (dense): bf16 tensor cores, HBM3 bandwidth.
 PEAK_BF16 = 989e12
-PEAK_TF32 = 495e12
 PEAK_BYTES = 3.35e12
 
-# kernel checks in bf16 against the plain versions. Both versions round p
-# (forward) and dS (backward) to bf16 at different points (running vs final
-# row max; TF32 vs f32 dp), so the forward error is a few bf16 ulps of o/l
-# and the backward error, max|err| / max|plain|, a few ulps of the largest
-# value; measured on an H100 (PERF.md): o/l <= 1.4e-3, dq/dk/dv <= 4.7e-3,
-# m 2.9e-6, l 2.6e-6 relative. A missing alpha rescale or a dropped K tile
-# moves m, l or o/l by orders of magnitude more.
+# kernel checks in bf16 against the plain versions. The forward rounds p to
+# bf16 at another row max than its plain version (running vs final), so its
+# error is a few bf16 ulps of o/l. The backward kernels run every product in
+# bf16 (g, P and dS rounded; the plain version keeps g, P and dp in f32), so
+# max|err| / max|plain| is a few ulps of the largest value; measured on an
+# H100 (PERF.md): o/l <= 1.8e-3, dq/dk/dv <= 5.9e-3, m 2.9e-6, l 2.6e-6
+# relative. A missing alpha rescale or a dropped K tile moves m, l or o/l by
+# orders of magnitude more.
 TOL_FWD = 5e-3      # max |o/l - plain o/l|, S=1024 and S=8192
 TOL_BWD = 1e-2      # normalised dq, dk, dv, S=1024 and S=8192
 TOL_M = 1e-4        # row max of the scores (f32 accumulation both sides)
@@ -101,11 +102,12 @@ def nerr(a, b) -> float:
                  / b.float().abs().max().clamp_min(1e-6))
 
 
-def check_kernels(fl, torch, B, S, H, D, offsets, dev) -> None:
-    gen = torch.Generator(device=dev).manual_seed(S + D)
-    q, k, v = (torch.randn((B, S, H, D), generator=gen, device=dev)
-               .to(torch.bfloat16) for _ in range(3))
-    g = torch.randn((B, S, H, D), generator=gen, device=dev)
+def check_kernels(fl, torch, B, Sq, Sk, H, D, offsets, dev) -> None:
+    gen = torch.Generator(device=dev).manual_seed(Sq + D)
+    q = torch.randn((B, Sq, H, D), generator=gen, device=dev).to(torch.bfloat16)
+    k, v = (torch.randn((B, Sk, H, D), generator=gen, device=dev)
+            .to(torch.bfloat16) for _ in range(2))
+    g = torch.randn((B, Sq, H, D), generator=gen, device=dev)
     for causal in (True, False):
         for q_off, k_off in offsets:
             o, m, l = fl.flash_block(q, k, v, q_off, k_off, causal=causal)
@@ -129,7 +131,8 @@ def check_kernels(fl, torch, B, S, H, D, offsets, dev) -> None:
                             ("dk", dk), ("dv", dv)):
                 if not torch.isfinite(t).all():
                     raise RuntimeError(f"kernel output {name} not finite")
-            log(f"check S={S} D={D} causal={causal} offs=({q_off},{k_off}) "
+            log(f"check Sq={Sq} Sk={Sk} D={D} causal={causal} "
+                f"offs=({q_off},{k_off}) "
                 + " ".join(f"{n}={e:.3e}" for n, e in errs.items()))
             limits = {"o": TOL_FWD, "m": TOL_M, "l": TOL_L, "dq": TOL_BWD,
                       "dk": TOL_BWD, "dv": TOL_BWD}
@@ -137,6 +140,33 @@ def check_kernels(fl, torch, B, S, H, D, offsets, dev) -> None:
             if bad:
                 raise RuntimeError(f"kernel disagrees with its plain version "
                                    f"beyond tolerance {limits}: {bad}")
+
+
+def kernel_bounds(B: int, S: int, H: int, D: int) -> dict:
+    """Least time on the card for each kernel at [B, S, H, D], causal, offsets
+    0: the larger of its products' FLOPs over the bf16 peak (every product
+    runs in bf16) and its bytes over the memory rate (each input read once,
+    each output written once). Returns {name: {"bound_ms", "bound_by"}}."""
+    pairs = B * H * S * (S + 1) // 2         # causal live (q, k) pairs
+    prod = 2.0 * pairs * D                   # FLOP of one [q,k]x[.,D] product
+    bf16_in = B * S * H * D * 2
+    f32_row = B * S * H * D * 4
+    stats = B * S * H * 4
+    work = {
+        # K1: s, P.V; reads q, k, v, writes o, m, l
+        "flash_fwd": (2, 3 * bf16_in + f32_row + 2 * stats),
+        # K2: s, dp, dq; reads q, k, v, g (f32), m, l, d, writes dq
+        "flash_bwd_dq": (3, 3 * bf16_in + 2 * f32_row + 3 * stats),
+        # K3: s, dp, dv, dk; reads the same, writes dk, dv
+        "flash_bwd_dkv": (4, 3 * bf16_in + 3 * f32_row + 3 * stats),
+    }
+    out = {}
+    for name, (n_prod, nbytes) in work.items():
+        op_s = n_prod * prod / PEAK_BF16
+        byte_s = nbytes / PEAK_BYTES
+        out[name] = {"bound_ms": max(op_s, byte_s) * 1e3,
+                     "bound_by": "operations" if op_s >= byte_s else "bytes"}
+    return out
 
 
 def kernel_bench(fl, torch, dev, B, S, H, D) -> dict:
@@ -187,27 +217,8 @@ def kernel_bench(fl, torch, dev, B, S, H, D) -> dict:
         res[name]["library_call"] = ("scaled_dot_product_attention bwd "
                                      "(dq, dk and dv together)")
 
-    # bounds from this run's inputs: causal live (q, k) pairs at offsets 0
-    pairs = B * H * sum(min(i + 1, S) for i in range(S))
-    prod = 2.0 * pairs * D                   # FLOP of one [q,k]x[.,D] product
-    bf16_in = B * S * H * D * 2
-    f32_row = B * S * H * D * 4
-    stats = B * S * H * 4
-    bounds = {
-        # K1: s and P.V in bf16; reads q, k, v, writes o, m, l
-        "flash_fwd": (2 * prod / PEAK_BF16,
-                      3 * bf16_in + f32_row + 2 * stats),
-        # K2: s and dq in bf16, dp in TF32; reads q,k,v,g,m,l,d, writes dq
-        "flash_bwd_dq": (2 * prod / PEAK_BF16 + prod / PEAK_TF32,
-                         3 * bf16_in + 2 * f32_row + 3 * stats),
-        # K3: s and dk in bf16, dp and dv in TF32; writes dk, dv
-        "flash_bwd_dkv": (2 * prod / PEAK_BF16 + 2 * prod / PEAK_TF32,
-                          3 * bf16_in + 3 * f32_row + 3 * stats),
-    }
-    for name, (op_s, nbytes) in bounds.items():
-        byte_s = nbytes / PEAK_BYTES
-        res[name]["bound_ms"] = max(op_s, byte_s) * 1e3
-        res[name]["bound_by"] = "operations" if op_s >= byte_s else "bytes"
+    for name, bound in kernel_bounds(B, S, H, D).items():
+        res[name].update(bound)
     for name, r in res.items():
         log(f"bench {name} S={S}: ms={r['ms']:.4f} plain_ms="
             f"{r['plain_ms']:.4f} bound_ms={r['bound_ms']:.4f} "
@@ -306,7 +317,8 @@ def max_abs_errs(fl, torch, dev, B, S, H, D) -> dict:
 
     Forward on o/l; raises when o/l is off by more than ``TOL_FWD`` or a
     gradient, normalised by its plain version's largest value, by more
-    than ``TOL_BWD``.
+    than ``TOL_BWD``, or when a second launch of K2 or K3 on the same
+    inputs does not repeat the first bit for bit.
     """
     gen = torch.Generator(device=dev).manual_seed(5)
     q, k, v = (torch.randn((B, S, H, D), generator=gen, device=dev)
@@ -322,17 +334,25 @@ def max_abs_errs(fl, torch, dev, B, S, H, D) -> dict:
     normed = {}
     del o, m, l, po
     dq = fl.flash_bwd_dq(*args, causal=True)
+    repeats = {"flash_bwd_dq": torch.equal(dq, fl.flash_bwd_dq(*args,
+                                                               causal=True))}
     pdq = fl.flash_bwd_dq_plain(*args, causal=True)
     errs["flash_bwd_dq"] = float((dq - pdq).abs().max())
     normed["flash_bwd_dq"] = nerr(dq, pdq)
     del dq, pdq
     dk, dv = fl.flash_bwd_dkv(*args, causal=True)
+    dk2, dv2 = fl.flash_bwd_dkv(*args, causal=True)
+    repeats["flash_bwd_dkv"] = torch.equal(dk, dk2) and torch.equal(dv, dv2)
+    del dk2, dv2
     pdk, pdv = fl.flash_bwd_dkv_plain(*args, causal=True)
     errs["flash_bwd_dkv"] = max(float((dk - pdk).abs().max()),
                                 float((dv - pdv).abs().max()))
     normed["flash_bwd_dkv"] = max(nerr(dk, pdk), nerr(dv, pdv))
     log(f"max_abs_err at S={S} (fwd on o/l, limit {TOL_FWD}): {errs}")
     log(f"normalised backward err at S={S} (limit {TOL_BWD}): {normed}")
+    log(f"repeat launches bit-identical at S={S}: {repeats}")
+    if not all(repeats.values()):
+        raise RuntimeError(f"a backward kernel did not repeat: {repeats}")
     bad = {n: e for n, e in normed.items() if not e <= TOL_BWD}
     if not errs["flash_fwd"] <= TOL_FWD:
         bad["flash_fwd"] = errs["flash_fwd"]
@@ -371,9 +391,13 @@ def main() -> int:
 
     dev = torch.device("cuda", 0)
     B, H, D = 1, 16, 128
-    check_kernels(fl, torch, B, 1024, H, D,
-                  [(0, 0), (1024, 0), (0, 1024)], dev)
-    check_kernels(fl, torch, B, 1000, 4, 64, [(0, 0), (37, 0)], dev)
+    check_kernels(fl, torch, B, 1024, 1024, H, D,
+                  [(0, 0), (1024, 0), (0, 1024), (64, 0), (0, 64), (37, 0)],
+                  dev)
+    check_kernels(fl, torch, B, 1024, 640, H, D, [(0, 0), (37, 0)], dev)
+    check_kernels(fl, torch, B, 1000, 1000, 4, 64, [(0, 0), (37, 0)], dev)
+    check_kernels(fl, torch, B, SEQ, SEQ, 8, 64, [(0, 0)], dev)
+    torch.cuda.empty_cache()
     # max_abs_err: kernel vs plain at the main path's shape, bf16
     errs = max_abs_errs(fl, torch, dev, B, SEQ, H, D)
     torch.cuda.empty_cache()
@@ -401,7 +425,7 @@ def main() -> int:
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+        "count": 1}}))
     return 0
 
 
