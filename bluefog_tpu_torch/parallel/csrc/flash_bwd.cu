@@ -67,8 +67,6 @@ constexpr int ROWS = 64;           // rows of one consumer warpgroup, of a strea
 constexpr int BLOCK_ROWS = 128;    // rows a block owns (two consumer warpgroups)
 constexpr int STAGES = 2;          // depth of the copy ring
 constexpr int THREADS = 384;       // two consumer warpgroups + one producer
-constexpr int REGION_ROW = 128;    // bytes of one swizzled row: 64 bf16
-constexpr float LOG2E = 1.4426950408889634f;
 
 // Byte offsets into the (1024-aligned) dynamic shared memory: the two
 // 128-row operands loaded once (`big` each), then the ring, whose stages hold
@@ -86,18 +84,6 @@ struct BwdLayout {
   static constexpr uint32_t bars = ring + STAGES * stage;
   static constexpr uint32_t bytes = bars + 8 * (2 * STAGES + 1) + 1024;  // + alignment slack
 };
-
-__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
-  const uint32_t a = smem_addr(p);
-  return p + ((1024 - (a & 1023)) & 1023);
-}
-
-// Number of 64-row tiles from the start of the other axis that meet the
-// causal past of `rows` rows starting at position `first`.
-__device__ __forceinline__ int live_prefix(int first, int rows, int other_off, int n) {
-  const int t = first + rows - 1 - other_off;
-  return t < 0 ? 0 : min(n, t / ROWS + 1);
-}
 
 // ---------------------------------------------------------------------------
 // K2: dq
@@ -124,7 +110,7 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int bh = blockIdx.x, b = bh / H, h = bh % H;
   const int q0 = qt * BLOCK_ROWS;
   const int nk = (Sk + ROWS - 1) / ROWS;
-  const int n_iter = causal ? live_prefix(q_off + q0, BLOCK_ROWS, k_off, nk) : nk;
+  const int n_iter = causal ? live_prefix(q_off + q0, BLOCK_ROWS, k_off, nk, ROWS) : nk;
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) {
@@ -417,50 +403,6 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
 // ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave,
-                                CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver the runtime already loaded, so the
-// library needs no -lcuda.
-static EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (!fn) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                       cudaEnableDefault, &found);
-#else
-    cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// Tensor map over a bf16 [B, S, H, D] tensor: boxes of 64 columns x 1 head x
-// `rows` rows, 128-byte swizzle; rows past S read as zeros.
-static int make_map(CUtensorMap* map, const void* ptr, int B, int S, int H, int D,
-                    int rows) {
-  EncodeTiled fn = encode_tiled();
-  if (!fn) return (int)cudaErrorNotSupported;
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)S, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)H * D * 2,
-                                 (cuuint64_t)S * H * D * 2};
-  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
-  const cuuint32_t estr[4] = {1, 1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
-                        dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
-}
 
 static int pad_rows(int S) { return (S + BLOCK_ROWS - 1) / BLOCK_ROWS * BLOCK_ROWS; }
 

@@ -7,12 +7,14 @@ Phases (each raises on failure; the script then exits non-zero):
 
 1. card: prints ``nvidia-smi --query-gpu=name,power.limit`` for the card.
 2. build: compiles the hand-written CUDA kernels from the sources in the
-   checkout (``bluefog_tpu_torch/parallel/csrc``) and prints the seconds.
+   checkout (``bluefog_tpu_torch/parallel/csrc``) and prints the seconds and
+   ptxas's register, spill, warning and performance-loss lines for each
+   kernel.
 3. kernels: each kernel (K1 forward, K2 dq, K3 dk/dv) against its plain
    PyTorch version on the card in bf16, B=1 H=16 D=128 S=1024, causal on
    and off, offsets (0,0), (S,0), (0,S), (64,0), (0,64), (37,0); Sq=1024
    against Sk=640; a ragged S with D=64; D=64 at S=8192. Then at the main
-   path's shape (S=8192): the errors, a repeat launch of K2 and K3 that
+   path's shape (S=8192): the errors, a repeat launch of K1, K2 and K3 that
    must match bit for bit, each kernel's time (CUDA events), its plain
    version's time, the bound (``kernel_bounds``), and the time of
    ``scaled_dot_product_attention`` as a yardstick.
@@ -95,6 +97,15 @@ def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
     t1.record()
     t1.synchronize()
     return t0.elapsed_time(t1) / iters
+
+
+def ptxas_lines(log: str) -> list:
+    """The lines of a kernel build log worth reading: registers, spills,
+    warnings, errors, and ptxas's performance-loss notes (a serialised
+    wgmma shows only there)."""
+    keys = ("registers", "spill", "warning", "error", "performance")
+    return [ln.strip() for ln in log.splitlines()
+            if any(k in ln.lower() for k in keys)]
 
 
 def nerr(a, b) -> float:
@@ -317,7 +328,7 @@ def max_abs_errs(fl, torch, dev, B, S, H, D) -> dict:
 
     Forward on o/l; raises when o/l is off by more than ``TOL_FWD`` or a
     gradient, normalised by its plain version's largest value, by more
-    than ``TOL_BWD``, or when a second launch of K2 or K3 on the same
+    than ``TOL_BWD``, or when a second launch of K1, K2 or K3 on the same
     inputs does not repeat the first bit for bit.
     """
     gen = torch.Generator(device=dev).manual_seed(5)
@@ -325,6 +336,8 @@ def max_abs_errs(fl, torch, dev, B, S, H, D) -> dict:
                .to(torch.bfloat16) for _ in range(3))
     g = torch.randn((B, S, H, D), generator=gen, device=dev)
     o, m, l = fl.flash_block(q, k, v, 0, 0, causal=True)
+    repeats = {"flash_fwd": all(torch.equal(a, b) for a, b in zip(
+        (o, m, l), fl.flash_block(q, k, v, 0, 0, causal=True)))}
     po, pm, pl = fl.flash_block_plain(q, k, v, 0, 0, causal=True)
     out = (po / pl[..., None]).to(torch.bfloat16)
     d_term = (g * out.float()).sum(-1)
@@ -334,8 +347,8 @@ def max_abs_errs(fl, torch, dev, B, S, H, D) -> dict:
     normed = {}
     del o, m, l, po
     dq = fl.flash_bwd_dq(*args, causal=True)
-    repeats = {"flash_bwd_dq": torch.equal(dq, fl.flash_bwd_dq(*args,
-                                                               causal=True))}
+    repeats["flash_bwd_dq"] = torch.equal(dq, fl.flash_bwd_dq(*args,
+                                                              causal=True))
     pdq = fl.flash_bwd_dq_plain(*args, causal=True)
     errs["flash_bwd_dq"] = float((dq - pdq).abs().max())
     normed["flash_bwd_dq"] = nerr(dq, pdq)
@@ -352,7 +365,7 @@ def max_abs_errs(fl, torch, dev, B, S, H, D) -> dict:
     log(f"normalised backward err at S={S} (limit {TOL_BWD}): {normed}")
     log(f"repeat launches bit-identical at S={S}: {repeats}")
     if not all(repeats.values()):
-        raise RuntimeError(f"a backward kernel did not repeat: {repeats}")
+        raise RuntimeError(f"a kernel did not repeat: {repeats}")
     bad = {n: e for n, e in normed.items() if not e <= TOL_BWD}
     if not errs["flash_fwd"] <= TOL_FWD:
         bad["flash_fwd"] = errs["flash_fwd"]
@@ -385,9 +398,8 @@ def main() -> int:
     secs = time.perf_counter() - t0
     log(f"build: {secs:.1f} s")
     for name, text in logs.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
-                log(f"  {name}: {line.strip()}")
+        for line in ptxas_lines(text):
+            log(f"  {name}: {line}")
 
     dev = torch.device("cuda", 0)
     B, H, D = 1, 16, 128

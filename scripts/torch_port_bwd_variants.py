@@ -5,11 +5,11 @@
 
 Builds ``csrc/flash_bwd.cu`` as committed and as each variant below (a text
 substitution of the committed source, built from a copy in a temporary
-directory), prints every build's ptxas spill lines, checks that each
-variant's dq, dk and dv equal the committed kernels' bit for bit at
-B=1 H=16 S=8192 D=128 causal, then times K2 and K3 of every build in turns
-(committed, variants, committed, variants, ...) with CUDA events. Needs one
-CUDA card.
+directory), prints every build's ptxas register, spill, warning and
+performance-loss lines, checks that each variant's dq, dk and dv equal the
+committed kernels' bit for bit at B=1 H=16 S=8192 D=128 causal, then times
+K2 and K3 of every build in turns (committed, variants, committed,
+variants, ...) with CUDA events. Needs one CUDA card.
 
 Variants:
   no_overlap   S and dP both finish before P is computed (no exp/dP overlap)
@@ -44,25 +44,42 @@ VARIANTS = {
 ROUNDS = 3
 
 
-def sources(tmp: Path) -> dict:
-    """A csrc copy per variant, substitutions applied."""
+def sources(tmp: Path, variants: dict, lib: str = "flash_bwd") -> dict:
+    """A csrc copy per variant, with its (old, new) substitutions applied to
+    ``<lib>.cu``."""
     out = {}
-    for name, subs in VARIANTS.items():
+    for name, subs in variants.items():
         d = tmp / name
         shutil.copytree(_build._CSRC, d)
-        text = (d / "flash_bwd.cu").read_text()
+        text = (d / f"{lib}.cu").read_text()
         for old, new in subs:
             if old not in text:
                 raise RuntimeError(f"variant {name}: {old!r} not in source")
             text = text.replace(old, new)
-        (d / "flash_bwd.cu").write_text(text)
+        (d / f"{lib}.cu").write_text(text)
         out[name] = d
     return out
 
 
-def use(csrc: Path) -> None:
+def use(csrc: Path, lib: str = "flash_bwd") -> None:
     _build._CSRC = csrc
-    _build._libs.pop("flash_bwd", None)
+    _build._libs.pop(lib, None)
+
+
+def build_all(dirs: dict, lib: str = "flash_bwd") -> None:
+    """Builds every variant's library, all nvcc processes at once, and prints
+    each build's ``chip_smoke.ptxas_lines`` (empty for a library that was
+    already built)."""
+    jobs, started = {}, set()
+    for name, d in dirs.items():
+        use(d, lib)
+        out = _build._lib_path(lib)   # a variant equal to another builds once
+        jobs[name] = (out, None) if out in started else _build._start(lib)
+        started.add(out)
+    for name, d in dirs.items():
+        use(d, lib)
+        log = _build._finish(lib, *jobs[name])
+        print(f"build {name}: {chip_smoke.ptxas_lines(log)}", flush=True)
 
 
 def main() -> None:
@@ -72,16 +89,8 @@ def main() -> None:
     print(f"card: {smi.stdout.strip()}", flush=True)
     tmp = Path(tempfile.mkdtemp(prefix="bwd_variants_"))
     try:
-        dirs = sources(tmp)
-        jobs = {}
-        for name, d in dirs.items():       # all nvcc processes at once
-            use(d)
-            jobs[name] = _build._start("flash_bwd")
-        for name, d in dirs.items():
-            use(d)
-            log = _build._finish("flash_bwd", *jobs[name])
-            spills = [ln.strip() for ln in log.splitlines() if "spill" in ln]
-            print(f"build {name}: {spills}", flush=True)
+        dirs = sources(tmp, VARIANTS)
+        build_all(dirs)
 
         dev = torch.device("cuda", 0)
         B, S, H, D = 1, chip_smoke.SEQ, 16, 128
