@@ -20,6 +20,12 @@ All parameters ride one flat fusion buffer, so a combine costs one send per
 shift. ``num_steps_per_communication=k`` communicates on every k-th step
 only (local SGD; reference optimizers.py:152-155).
 
+Only the optimizer's parameters (``optimizer.param_groups``) are
+communicated. A model's buffers — the BatchNorm ``mean``/``var`` of the
+vision models — stay local to each rank, updated by its own forward passes
+and never combined, as the JAX step returns each rank's ``batch_stats``
+uncombined (``with_model_state=True``, ``bluefog_tpu/optimizers.py:179-204``).
+
 Usage::
 
     opt = bf.DistributedNeighborAllreduceOptimizer(

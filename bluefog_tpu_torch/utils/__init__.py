@@ -1,6 +1,8 @@
-"""Parameter synchronization helpers and weight interop."""
+"""Parameter synchronization helpers, weight interop and input feeding."""
 
+from .data import prefetch_to_device
 from .interop import params_from_jax
 from .params import allreduce_parameters, broadcast_parameters
 
-__all__ = ["broadcast_parameters", "allreduce_parameters", "params_from_jax"]
+__all__ = ["broadcast_parameters", "allreduce_parameters", "params_from_jax",
+           "prefetch_to_device"]

@@ -1,13 +1,18 @@
 """Carry weights across from the JAX package.
 
-``params_from_jax`` turns the flax ``TransformerLM`` parameter tree — given
-as nested dicts of numpy arrays, so this module needs no JAX — into a
-``state_dict`` for the port's ``TransformerLM``:
+``params_from_jax`` turns a flax variable tree — given as nested dicts of
+numpy arrays, so this module needs no JAX — into a ``state_dict`` for the
+port's model of the same name (``TransformerLM``, ``ResNet*``, ``VGG*``,
+``MLP``, ``LeNet5``). The tree is the bare ``params`` or
+``{"params": ..., "batch_stats": ...}``:
 
-  * ``<layer>/kernel`` (flax Dense, ``[in, out]``) -> ``<layer>.weight``
+  * ``<layer>/kernel`` of a Dense (``[in, out]``) -> ``<layer>.weight``
     (``[out, in]``, the transpose);
+  * ``<layer>/kernel`` of a Conv (``[kh, kw, cin, cout]``) ->
+    ``<layer>.weight`` (``[cout, cin, kh, kw]``);
   * ``embed/embedding`` -> ``embed.weight``;
-  * ``<norm>/scale`` -> ``<norm>.scale``.
+  * ``<layer>/bias`` and ``<norm>/scale`` -> the parameter of that name;
+  * ``batch_stats`` ``<norm>/mean`` and ``<norm>/var`` -> the buffers.
 
 Any other leaf raises, so a renamed layer cannot slip through unmapped.
 """
@@ -31,21 +36,34 @@ def _flatten(tree: Mapping, prefix=()) -> Dict[tuple, np.ndarray]:
     return out
 
 
+def _param(mods, leaf: str, arr: np.ndarray):
+    if leaf == "kernel":
+        arr = arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T
+        return ".".join(mods) + ".weight", arr
+    if leaf == "embedding":
+        return ".".join(mods) + ".weight", arr
+    if leaf in ("scale", "bias"):
+        return ".".join(mods) + "." + leaf, arr
+    return None, arr
+
+
 def params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
-    """flax ``TransformerLM`` params (nested dicts of arrays) -> a
-    ``state_dict`` of f32 CPU tensors for the port's ``TransformerLM``."""
-    if "params" in tree and len(tree) == 1:
-        tree = tree["params"]
+    """flax variables (nested dicts of arrays) -> a ``state_dict`` of f32
+    CPU tensors for the port's model of the same architecture."""
+    collections = {"params": tree}
+    if "params" in tree and set(tree) <= {"params", "batch_stats"}:
+        collections = dict(tree)
     sd = {}
-    for path, arr in _flatten(tree).items():
-        *mods, leaf = path
-        if leaf == "kernel":
-            name, arr = ".".join(mods) + ".weight", arr.T
-        elif leaf == "embedding":
-            name = ".".join(mods) + ".weight"
-        elif leaf == "scale":
-            name = ".".join(mods) + ".scale"
-        else:
-            raise KeyError(f"unmapped flax parameter {'/'.join(path)}")
-        sd[name] = torch.from_numpy(np.array(arr, np.float32, order="C"))
+    for coll, sub in collections.items():
+        for path, arr in _flatten(sub).items():
+            *mods, leaf = path
+            if coll == "params":
+                name, arr = _param(mods, leaf, arr)
+            elif leaf in ("mean", "var"):
+                name = ".".join(mods) + "." + leaf
+            else:
+                name = None
+            if name is None:
+                raise KeyError(f"unmapped flax {coll} leaf {'/'.join(path)}")
+            sd[name] = torch.from_numpy(np.array(arr, np.float32, order="C"))
     return sd

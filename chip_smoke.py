@@ -26,6 +26,16 @@ Phases (each raises on failure; the script then exits non-zero):
    to 0 just before and read just after; each kernel must show ``LAYERS``
    launches per step. Before that, a small model checks flash logits and
    gradients against dense attention on the card.
+5. vision: ResNet-50 at full width (1000 classes, 224x224), the model of
+   ``python -m bluefog_tpu_torch.bench``. A check of the bf16
+   ``channels_last`` model against the same weights in f32 on the card
+   (logits, every gradient, the BN buffers after one train-mode forward;
+   ``fold_bn=True`` against unfolded eval logits), then the benchmark's own
+   step (``bench.setup()``: batch 128, ``DistributedNeighborAllreduceOptimizer``
+   around SGD 0.1/0.9, 10 warm-up and 100 timed steps) with img/s per card,
+   ms/step, peak memory and falling losses, then 20 steps fed from host
+   uint8 batches through ``prefetch_to_device``. Convolutions, BN and
+   pooling are cuDNN's and PyTorch's: this path launches none of K1-K3.
 
 The line before the last is the ``kernels`` JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -68,6 +78,36 @@ TOL_BWD = 1e-2      # normalised dq, dk, dv, S=1024 and S=8192
 TOL_M = 1e-4        # row max of the scores (f32 accumulation both sides)
 TOL_L = 1e-4        # relative row sum
 TOL_MODEL = 5e-2    # flash vs dense logits, bf16 model, max|err|/max|ref|
+
+# the vision phase: ResNet-50 at full width (1000 classes, 224x224), the
+# model of ``bluefog_tpu_torch/bench.py``. The check runs VISION_BATCH images
+# through the bf16 channels_last model and through the same weights in f32
+# (TF32 off); each error is max|bf16 - f32| / max|f32|, for the gradients
+# per parameter tensor (one the bf16 backward leaves without a gradient
+# reads 1) and for the BN buffers on what one train-mode forward moved them
+# by. The fold compares f32 eval logits of ``fold_bn=True`` (weights from
+# ``fold_batchnorm``) with the unfolded model's. Measured on an H100
+# (PERF.md): logits 9.0e-3, gradients max 0.61 (a BN scale) / median 0.36
+# per tensor and 0.20 in L2 over all of them, BN statistics 1.2e-2, fold
+# 3.3e-7. bf16 gradients of a random-init ResNet are that far from f32 in
+# flax too once XLA rounds at every bf16 op, as eager PyTorch does
+# (``scripts/torch_port_bf16_grad_probe.py``). The limits sit 1.4-2x above
+# the measured values, the gradient max below 1. The check holds the card's
+# bf16 route to its f32 one, so a fault common to both is the CPU tests'
+# to catch (against flax); it must catch each of VISION_FAULTS, planted in
+# the bf16 model alone.
+VISION_BATCH = 8
+TOL_VISION_LOGITS = 2e-2
+TOL_VISION_GRAD = 0.9          # per tensor, the largest
+TOL_VISION_GRAD_MEDIAN = 0.5   # per tensor, the median
+TOL_VISION_GRAD_L2 = 0.3       # all gradients as one vector
+TOL_VISION_STATS = 2.5e-2
+TOL_VISION_FOLD = 1e-5
+# the faults: block 8's residual branch dropped; the input's H and W
+# swapped (a wrong permute); block 8's branch cut out of the backward alone
+# (its output detached, the forward unchanged)
+VISION_FAULTS = ("drop_branch", "swap_hw", "detach_branch")
+HOST_DATA_STEPS = 20
 
 KERNELS = {
     "flash_fwd": ("bluefog_tpu_torch/parallel/csrc/flash_fwd.cu",
@@ -323,6 +363,179 @@ def train(bf, fl, torch) -> dict:
             "tokens_per_s": SEQ / dt, "peak_bytes": peak, "losses": losses}
 
 
+def _redraw_norms(model, torch, gen) -> None:
+    """BN scales ~ U(0.5, 1.5), those initialised to zero (each block's
+    last) ~ U(0.1, 0.3), biases ~ N(0, 0.1): every residual branch carries
+    gradient, and the branches stay small as the zero init intends. The
+    draw of ``_init`` in ``tests/test_torch_port_vision.py`` (which also
+    redraws the buffers; here one train-mode forward sets what is compared)."""
+    from bluefog_tpu_torch.models.layers import BatchNorm
+
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, BatchNorm):
+                lo, hi = (0.5, 1.5) if bool(mod.scale.any()) else (0.1, 0.3)
+                mod.scale.uniform_(lo, hi, generator=gen)
+                mod.bias.normal_(0.0, 0.1, generator=gen)
+
+
+def _plant(fault: str, model) -> None:
+    """Plant one of ``VISION_FAULTS`` in ``model``."""
+    import torch.nn.functional as F
+
+    block = model.BottleneckBlock_8
+    if fault == "drop_branch":
+        block.forward = F.relu
+    elif fault == "swap_hw":
+        model.register_forward_pre_hook(lambda m, a: (a[0].transpose(1, 2),))
+    elif fault == "detach_branch":
+        block.BatchNorm_2.register_forward_hook(lambda m, a, y: y.detach())
+    else:
+        raise ValueError(f"unknown fault {fault!r}")
+
+
+def _vision_errors(bf, torch, dev, fault=None) -> tuple:
+    """The bf16-vs-f32 errors of ResNet-50 (seed 0), with ``fault`` planted
+    in the bf16 model; the fold too when no fault is. Returns the errors,
+    the parameter names ranked by gradient error and those errors."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device=dev).manual_seed(13)
+    m16 = bf.models.ResNet50(dtype=torch.bfloat16, device=dev, seed=0)
+    _redraw_norms(m16, torch, gen)
+    m32 = bf.models.ResNet50(dtype=torch.float32, device=dev, seed=0)
+    m32.load_state_dict(m16.state_dict())
+    if fault is not None:
+        _plant(fault, m16)
+    start = {k: v.clone() for k, v in m32.named_buffers()}
+    x = torch.randn((VISION_BATCH, 224, 224, 3), generator=gen, device=dev)
+    y = torch.randint(0, 1000, (VISION_BATCH,), generator=gen, device=dev)
+    logits = {}
+    for m in (m16, m32):
+        out = m.train()(x)
+        F.cross_entropy(out, y).backward()
+        logits[m] = out.detach()
+    torch.cuda.synchronize()
+    errs = {"logits": nerr(logits[m16], logits[m32])}
+    g32 = {n: p.grad for n, p in m32.named_parameters()}
+    g16 = {n: torch.zeros_like(p) if p.grad is None else p.grad.float()
+           for n, p in m16.named_parameters()}
+    grads = {n: nerr(g, g32[n]) for n, g in g16.items()}
+    ranked = sorted(grads, key=grads.get)
+    errs["grad"] = grads[ranked[-1]]
+    errs["grad_median"] = grads[ranked[len(ranked) // 2]]
+    diff = sum(float((g - g32[n]).square().sum()) for n, g in g16.items())
+    norm = sum(float(g.square().sum()) for g in g32.values())
+    errs["grad_l2"] = math.sqrt(diff / norm)
+    b32 = dict(m32.named_buffers())
+    errs["stats"] = max(nerr(b - start[n], b32[n] - start[n])
+                        for n, b in m16.named_buffers())
+    if fault is None:
+        m32.eval()
+        folded = bf.models.ResNet50(dtype=torch.float32, fold_bn=True,
+                                    device=dev).eval()
+        folded.load_state_dict(bf.models.fold_batchnorm(m32.state_dict()))
+        with torch.no_grad():
+            errs["fold"] = nerr(folded(x), m32(x))
+    return errs, ranked, grads
+
+
+def vision_check(bf, torch, dev) -> dict:
+    """ResNet-50 (full width, seed 0) in bf16 ``channels_last`` against the
+    same weights in f32 on the card: logits, every parameter gradient, the
+    BN buffers after one train-mode forward, and folded against unfolded
+    f32 eval logits. Raises past the ``TOL_VISION_*`` limits, or when one of
+    ``VISION_FAULTS`` planted in the bf16 model stays within all of them."""
+    limits = {"logits": TOL_VISION_LOGITS, "grad": TOL_VISION_GRAD,
+              "grad_median": TOL_VISION_GRAD_MEDIAN,
+              "grad_l2": TOL_VISION_GRAD_L2, "stats": TOL_VISION_STATS,
+              "fold": TOL_VISION_FOLD}
+
+    def beyond(errs):
+        return {n: e for n, e in errs.items() if not e <= limits[n]}
+
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False      # a true f32 reference
+    try:
+        errs, ranked, grads = _vision_errors(bf, torch, dev)
+        planted = {f: _vision_errors(bf, torch, dev, f)[0]
+                   for f in VISION_FAULTS}
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    log("vision grad errors, largest: " + " ".join(
+        f"{n}={grads[n]:.3e}" for n in ranked[-4:]))
+    log(f"vision check ResNet-50 B={VISION_BATCH} 224x224, bf16 vs f32: "
+        f"logits={errs['logits']:.3e} grad max={errs['grad']:.3e} "
+        f"({ranked[-1]}) median={errs['grad_median']:.3e} "
+        f"l2={errs['grad_l2']:.3e} bn_stats={errs['stats']:.3e}; fold_bn "
+        f"vs unfolded f32 eval logits={errs['fold']:.3e}")
+    bad = beyond(errs)
+    if bad:
+        raise RuntimeError(f"vision check beyond its limits {limits}: {bad}")
+    for fault, e in planted.items():
+        log(f"vision check, planted {fault}: " + " ".join(
+            f"{n}={v:.3e}" for n, v in e.items())
+            + f"; beyond the limits: {sorted(beyond(e))}")
+        if not beyond(e):
+            raise RuntimeError(f"the vision check missed the planted fault "
+                               f"{fault}: {e}")
+    return dict(errs, worst_grad=ranked[-1])
+
+
+def vision_train(bf, torch, card: str) -> dict:
+    """The root benchmark's step on the port (``bluefog_tpu_torch.bench``):
+    ResNet-50 at 128 per card, 224x224, DistributedNeighborAllreduceOptimizer
+    around SGD 0.1/0.9, ``bench.WARMUP`` then ``ITERS * BATCHES_PER_ITER``
+    timed steps on the resident synthetic batch; then ``HOST_DATA_STEPS``
+    steps fed from the uint8 host pool through ``prefetch_to_device``
+    (prefetch 2). Raises on a non-finite loss or a loss that does not fall
+    (the synthetic labels are all 0)."""
+    import itertools
+
+    from bluefog_tpu_torch import bench
+    from bluefog_tpu_torch.utils import prefetch_to_device
+
+    opt, batch, sync = bench.setup()
+    try:
+        dev = batch[0].device
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        steps = bench.ITERS * bench.BATCHES_PER_ITER
+        res = bench.run(opt, itertools.repeat(batch), sync, bench.WARMUP,
+                        steps)
+        peak = torch.cuda.max_memory_allocated()
+        n_params = sum(p.numel() for p in opt.model.parameters())
+        img_s = bench.BATCH_PER_CHIP * steps / res["seconds"]
+        losses = res["losses"]
+        log(f"vision train ({card}): ResNet-50 batch "
+            f"{bench.BATCH_PER_CHIP} {bench.IMAGE}x{bench.IMAGE} params="
+            f"{n_params} steps={bench.WARMUP}+{steps} img/s/card="
+            f"{img_s:.1f} ms/step={res['seconds'] / steps * 1e3:.3f} "
+            f"peak_mem_GiB={peak / 2**30:.3f} vs_baseline="
+            f"{img_s / bench.BASELINE_IMG_SEC_PER_DEVICE:.3f} "
+            f"({bench.BASELINE})")
+        log(f"vision losses: first {losses[0]:.5f} last {losses[-1]:.5f}")
+        if not all(math.isfinite(x) for x in losses):
+            raise RuntimeError(f"non-finite vision loss {losses}")
+        if not losses[-1] < losses[0]:
+            raise RuntimeError(f"vision loss did not fall {losses}")
+        feed = prefetch_to_device(
+            bench.host_batch_pool(bench.BATCH_PER_CHIP), size=2, device=dev)
+        host = bench.run(opt, feed, sync, 2, HOST_DATA_STEPS)
+        host_img_s = bench.BATCH_PER_CHIP * HOST_DATA_STEPS / host["seconds"]
+        log(f"vision host data ({card}): uint8 pool, prefetch 2, "
+            f"{HOST_DATA_STEPS} steps, img/s/card={host_img_s:.1f} "
+            f"ms/step={host['seconds'] / HOST_DATA_STEPS * 1e3:.3f}")
+        if not all(math.isfinite(x) for x in host["losses"]):
+            raise RuntimeError(f"non-finite host-data loss {host['losses']}")
+    finally:
+        bf.shutdown()
+    return {"img_per_s": img_s, "ms_per_step": res["seconds"] / steps * 1e3,
+            "peak_bytes": peak, "params": n_params,
+            "first_loss": losses[0], "last_loss": losses[-1],
+            "host_img_per_s": host_img_s}
+
+
 def max_abs_errs(fl, torch, dev, B, S, H, D) -> dict:
     """Each kernel's max |kernel - plain| at the main path's shape.
 
@@ -419,6 +632,10 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     run = train(bf, fl, torch)
+    torch.cuda.empty_cache()
+    vision = dict(check=vision_check(bf, torch, dev))
+    torch.cuda.empty_cache()
+    vision["train"] = vision_train(bf, torch, card)
 
     kernels = []
     for name, (src, tpu) in KERNELS.items():
@@ -432,8 +649,8 @@ def main() -> int:
         })
     os.makedirs(os.path.dirname(OUT), exist_ok=True)
     with open(OUT, "w") as f:
-        json.dump({"card": card, "kernels": kernels, "train": run}, f,
-                  indent=1)
+        json.dump({"card": card, "kernels": kernels, "train": run,
+                   "vision": vision}, f, indent=1)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

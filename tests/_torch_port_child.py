@@ -105,6 +105,31 @@ def _slice(bf, torch, rank: int, world: int, inp) -> dict:
     return out
 
 
+def _vision(bf, torch, rank: int, world: int, inp) -> dict:
+    """ResNet18 under DistributedNeighborAllreduceOptimizer around SGD
+    (lr 0.1, momentum 0.9), this rank's images; the flax variables come in
+    as ``v:<collection>/<path>`` leaves."""
+    from bluefog_tpu_torch.utils import params_from_jax
+
+    model = bf.models.ResNet18(num_filters=int(inp["num_filters"]),
+                               num_classes=int(inp["num_classes"]),
+                               dtype=torch.float32, device="cpu")
+    variables = {k[len("v:"):]: v for k, v in inp.items()
+                 if k.startswith("v:")}
+    model.load_state_dict(params_from_jax(_unflatten(variables)))
+    opt = bf.DistributedNeighborAllreduceOptimizer(
+        torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9), model,
+        bf.models.classification_loss)
+    batch = (torch.from_numpy(inp["images"][rank]),
+             torch.from_numpy(inp["labels"][rank]))
+    losses = [float(opt.step(batch)["loss"])
+              for _ in range(int(inp["steps"]))]
+    out = {f"sd:{k}": v.detach().numpy() for k, v in
+           model.state_dict().items()}
+    out["losses"] = np.asarray(losses)
+    return out
+
+
 def main() -> None:
     mode, rank, world, tmp_dir = sys.argv[1], int(sys.argv[2]), \
         int(sys.argv[3]), sys.argv[4]
@@ -116,7 +141,8 @@ def main() -> None:
     bf.init(device="cpu", init_method="file://" + os.path.join(
         tmp_dir, "store"), rank=rank, world_size=world)
     inp = dict(np.load(os.path.join(tmp_dir, "inputs.npz")))
-    out = {"ops": _ops, "slice": _slice}[mode](bf, torch, rank, world, inp)
+    out = {"ops": _ops, "slice": _slice, "vision": _vision}[mode](
+        bf, torch, rank, world, inp)
     bf.barrier()
     bf.shutdown()
     np.savez(os.path.join(tmp_dir, f"out_{rank}.npz"), **out)

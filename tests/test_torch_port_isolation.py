@@ -14,6 +14,7 @@ import pytest
 import torch
 
 import bluefog_tpu_torch as bft
+from bluefog_tpu_torch import bench
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -38,13 +39,20 @@ def test_port_imports_no_jax():
     assert res.stdout.startswith("clean")
 
 
-@pytest.mark.parametrize("entry", ["init", "TransformerLM"])
+_ENTRIES = {
+    "init": lambda: bft.init(),
+    "TransformerLM": lambda: bft.models.TransformerLM(vocab_size=16),
+    "ResNet50": lambda: bft.models.ResNet50(),
+    "VGG16": lambda: bft.models.VGG16(),
+    "bench.setup": lambda: bench.setup(),
+    "prefetch_to_device": lambda: bft.utils.prefetch_to_device(iter([])),
+}
+
+
+@pytest.mark.parametrize("entry", list(_ENTRIES))
 def test_port_entry_points_refuse_cpu_fallback(entry):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is valid")
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        if entry == "init":
-            bft.init()
-        else:
-            bft.models.TransformerLM(vocab_size=16)
+        _ENTRIES[entry]()
     assert not torch.distributed.is_initialized()

@@ -88,5 +88,9 @@ def test_port_loss_and_grads_match_jax(attn):
 
 
 def test_params_from_jax_rejects_unknown_leaf():
+    # ``bias`` maps since the vision models (their Dense and Conv have one)
     with pytest.raises(KeyError):
-        params_from_jax({"block_0": {"qkv": {"bias": np.zeros(3)}}})
+        params_from_jax({"block_0": {"qkv": {"gamma": np.zeros(3)}}})
+    with pytest.raises(KeyError):
+        params_from_jax({"params": {"bn": {"scale": np.ones(3)}},
+                         "batch_stats": {"bn": {"count": np.zeros(3)}}})
