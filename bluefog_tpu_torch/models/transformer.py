@@ -1,10 +1,13 @@
 """Decoder-only transformer LM with pluggable attention.
 
 Counterpart of ``bluefog_tpu/models/transformer.py`` (``apply_rope`` :26-37,
-``_attention_sublayer`` :40-56, ``Block`` :59-76, ``TransformerLM``
-:113-170). Module and parameter names follow the flax tree (``embed``,
-``block_<i>.{RMSNorm_0, qkv, out, RMSNorm_1, up, down}``, ``final_norm``,
-``lm_head``) so ``utils.interop.params_from_jax`` maps one to the other.
+``_attention_sublayer`` :40-56, ``Block`` :59-76, ``MoEBlock`` :79-110,
+``TransformerLM`` :113-170, ``MoETransformerLM`` :173-177). Module and
+parameter names follow the flax tree (``embed``,
+``block_<i>.{RMSNorm_0, qkv, out, RMSNorm_1, up, down}``, an MoE block's
+``block_<i>.{RMSNorm_0, qkv, out, RMSNorm_1, moe.{gate, up, down}}``,
+``final_norm``, ``lm_head``) so ``utils.interop.params_from_jax`` maps one
+to the other.
 
 Numerics follow flax, including its cast points:
 
@@ -16,7 +19,9 @@ Numerics follow flax, including its cast points:
   * RoPE is half-split (not interleaved) and computed in f32;
   * logits are cast to f32.
 
-The Switch-MoE block is a later slice: ``num_experts > 0`` raises.
+The Switch-MoE block runs in the dense single-device mode
+(``parallel.expert.SwitchFFN``); the expert-parallel mode (``expert_axis``
+set) is a later slice and raises.
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..parallel.context import reference_attention
+from ..parallel.expert import SwitchFFN
 from ..runtime.state import resolve_device
 
 
@@ -91,11 +97,13 @@ class Embed(nn.Module):
         return self.weight[tokens].to(self.dtype)
 
 
-class Block(nn.Module):
-    """Pre-norm attention + gelu FFN, each with a residual."""
+class _AttentionBlock(nn.Module):
+    """The pre-norm attention residual that ``Block`` and ``MoEBlock`` share
+    (``_attention_sublayer``), then the pre-norm FFN residual around the
+    subclass's ``ffn``."""
 
-    def __init__(self, d_model: int, num_heads: int, d_ff: int,
-                 dtype: torch.dtype, attn_fn: Callable, device=None) -> None:
+    def __init__(self, d_model: int, num_heads: int, dtype: torch.dtype,
+                 attn_fn: Callable, device=None) -> None:
         super().__init__()
         self.num_heads = num_heads
         self.attn_fn = attn_fn
@@ -103,8 +111,6 @@ class Block(nn.Module):
         self.qkv = Dense(d_model, 3 * d_model, dtype, device)
         self.out = Dense(d_model, d_model, dtype, device)
         self.RMSNorm_1 = RMSNorm(d_model, dtype, device)
-        self.up = Dense(d_model, d_ff, dtype, device)
-        self.down = Dense(d_ff, d_model, dtype, device)
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor):
         B, S, d_model = x.shape
@@ -116,27 +122,59 @@ class Block(nn.Module):
         k = apply_rope(k, positions)
         a = self.attn_fn(q, k, v).reshape(B, S, d_model)
         x = x + self.out(a)
-        h = self.up(self.RMSNorm_1(x))
-        return x + self.down(F.gelu(h, approximate="tanh"))
+        return x + self.ffn(self.RMSNorm_1(x))
+
+
+class Block(_AttentionBlock):
+    """Pre-norm attention + gelu FFN, each with a residual."""
+
+    def __init__(self, d_model: int, num_heads: int, d_ff: int,
+                 dtype: torch.dtype, attn_fn: Callable, device=None) -> None:
+        super().__init__(d_model, num_heads, dtype, attn_fn, device)
+        self.up = Dense(d_model, d_ff, dtype, device)
+        self.down = Dense(d_ff, d_model, dtype, device)
+
+    def ffn(self, h: torch.Tensor) -> torch.Tensor:
+        return self.down(F.gelu(self.up(h), approximate="tanh"))
+
+
+class MoEBlock(_AttentionBlock):
+    """Transformer block whose FFN is a top-1 Switch mixture of experts
+    (``SwitchFFN`` under the name ``moe``); attention as in ``Block``."""
+
+    def __init__(self, d_model: int, num_heads: int, d_ff: int,
+                 num_experts: int, dtype: torch.dtype, attn_fn: Callable,
+                 expert_axis: Optional[str] = None, device=None) -> None:
+        super().__init__(d_model, num_heads, dtype, attn_fn, device)
+        self.moe = SwitchFFN(d_model, num_experts, d_ff, dtype, expert_axis,
+                             device=device)
+
+    def ffn(self, h: torch.Tensor) -> torch.Tensor:
+        return self.moe(h)
 
 
 class TransformerLM(nn.Module):
     """Causal LM. ``attn_fn(q, k, v) -> out`` defaults to dense attention.
 
+    ``num_experts > 0`` turns block i into an ``MoEBlock`` (Switch MoE FFN)
+    when ``(i + 1) % moe_every == 0``. ``expert_axis`` (the expert-parallel
+    mode) is not ported yet and raises; ``capacity_factor`` belongs to that
+    mode, and the dense one takes it for the JAX signature and ignores it.
+
     Weights are random, drawn on ``device`` from ``seed`` (normal with std
-    1/sqrt(fan_in) for dense layers and the embedding, ones for norms), or
-    loaded with ``load_state_dict`` (e.g. from ``params_from_jax``).
+    1/sqrt(fan_in) for dense layers, the embedding and the experts, ones
+    for norms), or loaded with ``load_state_dict`` (e.g. from
+    ``params_from_jax``).
     """
 
     def __init__(self, vocab_size: int, num_layers: int = 2,
                  num_heads: int = 4, d_model: int = 128, d_ff: int = 512,
                  dtype: torch.dtype = torch.float32,
                  attn_fn: Optional[Callable] = None, num_experts: int = 0,
-                 *, device=None, seed: int = 0) -> None:
+                 moe_every: int = 2, expert_axis: Optional[str] = None,
+                 capacity_factor: float = 2.0, *, device=None,
+                 seed: int = 0) -> None:
         super().__init__()
-        if num_experts:
-            raise NotImplementedError(
-                "the Switch-MoE block is not ported yet (ROADMAP Queue 1)")
         dev = resolve_device(device)
         self.vocab_size = vocab_size
         self.num_layers = num_layers
@@ -144,8 +182,12 @@ class TransformerLM(nn.Module):
         attn = attn_fn or partial(reference_attention, causal=True)
         self.embed = Embed(vocab_size, d_model, dtype, dev)
         for i in range(num_layers):
-            setattr(self, f"block_{i}",
-                    Block(d_model, num_heads, d_ff, dtype, attn, dev))
+            if num_experts and (i + 1) % moe_every == 0:
+                blk = MoEBlock(d_model, num_heads, d_ff, num_experts, dtype,
+                               attn, expert_axis, dev)
+            else:
+                blk = Block(d_model, num_heads, d_ff, dtype, attn, dev)
+            setattr(self, f"block_{i}", blk)
         self.final_norm = RMSNorm(d_model, dtype, dev)
         self.lm_head = Dense(d_model, vocab_size, dtype, dev)
         self.reset_parameters(seed)
@@ -158,6 +200,8 @@ class TransformerLM(nn.Module):
             if isinstance(mod, (Dense, Embed)):
                 fan_in = mod.weight.shape[1]
                 mod.weight.normal_(0.0, fan_in ** -0.5, generator=gen)
+            elif isinstance(mod, SwitchFFN):
+                mod.reset_parameters(gen)
 
     def hidden(self, tokens: torch.Tensor,
                positions: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -181,3 +225,10 @@ def lm_loss(model: TransformerLM, batch) -> torch.Tensor:
     logits = model(tokens)
     return F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
                            targets.reshape(-1))
+
+
+def MoETransformerLM(vocab_size: int, num_experts: int,
+                     **kw) -> TransformerLM:
+    """A ``TransformerLM`` with Switch-MoE FFN blocks (Fedus et al. 2021);
+    see ``TransformerLM`` for the other arguments."""
+    return TransformerLM(vocab_size=vocab_size, num_experts=num_experts, **kw)

@@ -2,8 +2,8 @@
 
 ``params_from_jax`` turns a flax variable tree — given as nested dicts of
 numpy arrays, so this module needs no JAX — into a ``state_dict`` for the
-port's model of the same name (``TransformerLM``, ``ResNet*``, ``VGG*``,
-``MLP``, ``LeNet5``). The tree is the bare ``params`` or
+port's model of the same name (``TransformerLM`` dense or MoE, ``SwitchFFN``,
+``ResNet*``, ``VGG*``, ``MLP``, ``LeNet5``). The tree is the bare ``params`` or
 ``{"params": ..., "batch_stats": ...}``:
 
   * ``<layer>/kernel`` of a Dense (``[in, out]``) -> ``<layer>.weight``
@@ -12,6 +12,11 @@ port's model of the same name (``TransformerLM``, ``ResNet*``, ``VGG*``,
     ``<layer>.weight`` (``[cout, cin, kh, kw]``);
   * ``embed/embedding`` -> ``embed.weight``;
   * ``<layer>/bias`` and ``<norm>/scale`` -> the parameter of that name;
+  * a ``SwitchFFN``'s raw leaves, ``block_<i>/moe/{gate,up,down}`` in an
+    MoE ``TransformerLM`` or ``{gate,up,down}`` of a bare ``SwitchFFN``
+    tree -> ``block_<i>.moe.{gate,up,down}`` (resp. ``{gate,up,down}``),
+    untransposed: they are parameters, not ``Dense`` kernels, and keep
+    flax's ``[d, E]``, ``[E, d, d_ff]`` and ``[E, d_ff, d]`` layout;
   * ``batch_stats`` ``<norm>/mean`` and ``<norm>/var`` -> the buffers.
 
 Any other leaf raises, so a renamed layer cannot slip through unmapped.
@@ -44,6 +49,8 @@ def _param(mods, leaf: str, arr: np.ndarray):
         return ".".join(mods) + ".weight", arr
     if leaf in ("scale", "bias"):
         return ".".join(mods) + "." + leaf, arr
+    if leaf in ("gate", "up", "down") and mods[-1:] in ([], ["moe"]):
+        return ".".join(mods + [leaf]), arr
     return None, arr
 
 

@@ -26,7 +26,25 @@ Phases (each raises on failure; the script then exits non-zero):
    to 0 just before and read just after; each kernel must show ``LAYERS``
    launches per step. Before that, a small model checks flash logits and
    gradients against dense attention on the card.
-5. vision: ResNet-50 at full width (1000 classes, 224x224), the model of
+5. ce check: ``chunked_ce_loss`` against the full-logits ``lm_loss`` on the
+   headline model in bf16, one batch: the loss and every gradient within
+   ``TOL_CE_*``; one chunk's targets rolled by one position must land
+   beyond a limit.
+6. lm_bench: ``python -m bluefog_tpu_torch.lm_bench``'s ``run`` at its
+   defaults (the headline, plain Adam, 3 warm-up and 20 timed steps) in
+   three forms: full logits, ``--chunked-ce``, ``--remat --chunked-ce``.
+   Each prints its JSON line (ms/step, tokens/s, mfu against the H100's
+   bf16 peak) and its peak memory; each kernel must launch ``LAYERS`` times
+   a step (K1 twice that under remat), and the chunked forms must peak
+   below the full-logits form.
+7. moe: (a) a small bf16 MoE LM, flash against dense attention (the
+   share of tokens routed apart, then logits and gradients over the tokens
+   routed alike); (b) a SwitchFFN in f32 on the card against the CPU; (c)
+   the MoE LM at the headline width (8 experts, blocks 1 and 3 MoE) under the
+   decentralized optimizer with ``chunked_ce_loss``, 2 warm-up and 5 timed
+   steps: ms/step, tokens/s, mfu, peak memory, falling losses, ``LAYERS``
+   launches of each kernel per step.
+8. vision: ResNet-50 at full width (1000 classes, 224x224), the model of
    ``python -m bluefog_tpu_torch.bench``. A check of the bf16
    ``channels_last`` model against the same weights in f32 on the card
    (logits, every gradient, the BN buffers after one train-mode forward;
@@ -61,8 +79,9 @@ SEQ = 8192
 WARMUP = 2
 STEPS = 5
 
-# H100 SXM data-sheet peaks (dense): bf16 tensor cores, HBM3 bandwidth.
-PEAK_BF16 = 989e12
+# H100 SXM data-sheet peaks (dense): bf16 tensor cores (the peak that
+# ``lm_bench``'s mfu divides by), HBM3 bandwidth.
+from bluefog_tpu_torch.lm_bench import H100_BF16_PEAK as PEAK_BF16  # noqa: E402
 PEAK_BYTES = 3.35e12
 
 # kernel checks in bf16 against the plain versions. The forward rounds p to
@@ -108,6 +127,38 @@ TOL_VISION_FOLD = 1e-5
 # (its output detached, the forward unchanged)
 VISION_FAULTS = ("drop_branch", "swap_hw", "detach_branch")
 HOST_DATA_STEPS = 20
+
+# the ce check: ``chunked_ce_loss`` (chunks of CE_CHUNK tokens) against the
+# full-logits ``lm_loss`` on the headline model (bf16, seed 0) and one batch,
+# both through the flash kernels: the loss's relative error, and each
+# parameter gradient's max|chunked - full| / max|full| (the largest over the
+# tensors) and the relative L2 of all of them as one vector. Both compute the
+# same bf16 products; cuBLAS may take another algorithm for a 1024-row chunk
+# than for 8192 rows, and the chunks' bf16 lm_head gradients are summed in
+# bf16. Measured on an H100 (PERF.md): loss 8.8e-8 (one f32 ulp of 10.88),
+# gradient max 1.03e-2, L2 1.19e-3; the limits sit 2-23x above. The planted
+# fault (one chunk's targets rolled by one position) must land beyond a
+# limit: it read loss 6.9e-5, gradient max 0.34, L2 0.25.
+CE_CHUNK = 1024
+TOL_CE_LOSS = 2e-6
+TOL_CE_GRAD = 2.5e-2
+TOL_CE_GRAD_L2 = 3e-3
+
+# the MoE phase. (a) a small bf16 MoE LM (E=4), flash against dense
+# attention: the router's logits are bf16, so two experts' logits often tie
+# and a token can go either way under the two attentions (1-5 of 640 tokens
+# at every seed tried on the CPU's plain flash, 2 on the H100); the share
+# routed apart is held to TOL_ROUTED_APART (a wrong router sends most tokens
+# elsewhere), and the loss over the tokens routed alike, its gradients and
+# those tokens' logits to TOL_MODEL. (b) one SwitchFFN in f32 on the card
+# (TF32 off) against the same weights on the CPU, output and gradients
+# normalised as ``nerr`` (measured 9.6e-7 and 8.2e-7), identical routing.
+# (c) the MoE LM at the headline width (E=8, the package's default, blocks
+# 1 and 3 MoE) trained with ``chunked_ce_loss`` under the decentralized
+# optimizer.
+MOE_EXPERTS = 8
+TOL_ROUTED_APART = 2e-2
+TOL_SWITCH = 1e-5
 
 KERNELS = {
     "flash_fwd": ("bluefog_tpu_torch/parallel/csrc/flash_fwd.cu",
@@ -277,57 +328,128 @@ def kernel_bench(fl, torch, dev, B, S, H, D) -> dict:
     return res
 
 
-def model_check(bf, fl, torch, dev) -> None:
-    """Flash vs dense attention in a small bf16 model on the card."""
+def _switch_ffns(model) -> list:
+    from bluefog_tpu_torch.parallel import SwitchFFN
+
+    return [m for m in model.modules() if isinstance(m, SwitchFFN)]
+
+
+def _routed_alike(model_a, model_b, toks):
+    """[B, S] bool: the tokens that every MoE layer of the two models sends
+    to the same expert on one forward of ``toks``."""
+    import torch
+
+    seen = {}
+    hooks = [mod.register_forward_pre_hook(
+        lambda m, args, key=key: seen.setdefault(key, []).append(
+            m.route(args[0])[1]))
+        for key, model in enumerate((model_a, model_b))
+        for mod in _switch_ffns(model)]
+    with torch.no_grad():
+        model_a(toks)
+        model_b(toks)
+    for h in hooks:
+        h.remove()
+    return torch.stack([a == b for a, b in zip(seen[0], seen[1])]).all(0)
+
+
+def model_check(bf, fl, torch, dev, num_experts: int = 0,
+                seed: int = 3) -> dict:
+    """Flash vs dense attention in a small bf16 model on the card. With
+    ``num_experts`` an MoE LM whose one MoE block is the last: a token whose
+    two best router logits tie in bf16 can go to another expert under each
+    attention, which changes that token's logits alone, so the share routed
+    apart is held to ``TOL_ROUTED_APART`` and the loss (mean over the
+    tokens routed alike), its gradients and those tokens' logits to
+    ``TOL_MODEL``."""
+    import torch.nn.functional as F
     from bluefog_tpu_torch.parallel.context import reference_attention
     from functools import partial
 
     def build(attn):
         return bf.models.TransformerLM(
             vocab_size=512, num_layers=2, num_heads=2, d_model=256, d_ff=1024,
-            dtype=torch.bfloat16, attn_fn=attn, device=dev, seed=3)
+            dtype=torch.bfloat16, attn_fn=attn, num_experts=num_experts,
+            device=dev, seed=seed)
 
     flash_m = build(fl.flash_attention)
     dense_m = build(partial(reference_attention, causal=True))
     gen = torch.Generator(device=dev).manual_seed(11)
     toks = torch.randint(0, 512, (2, 320), generator=gen, device=dev)
     batch = (toks, toks.roll(-1, dims=1))
-    lf = bf.models.lm_loss(flash_m, batch)
-    ld = bf.models.lm_loss(dense_m, batch)
+    loss = bf.models.lm_loss
+    keep = torch.ones_like(toks, dtype=torch.bool)
+    if num_experts:
+        keep = _routed_alike(flash_m, dense_m, toks)
+
+        def loss(model, batch):
+            logits = model(batch[0])
+            nll = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                                  batch[1].reshape(-1), reduction="none")
+            return (nll * keep.flatten()).sum() / keep.sum()
+    lf = loss(flash_m, batch)
+    ld = loss(dense_m, batch)
     lf.backward()
     ld.backward()
     with torch.no_grad():
-        e_logits = nerr(flash_m(toks), dense_m(toks))
+        e_logits = nerr(flash_m(toks)[keep], dense_m(toks)[keep])
     e_grad = max(nerr(a.grad, b.grad) for a, b in
                  zip(flash_m.parameters(), dense_m.parameters()))
-    log(f"model check: logits err={e_logits:.3e} grad err={e_grad:.3e} "
-        f"loss flash={float(lf.detach()):.5f} dense={float(ld.detach()):.5f}")
+    apart = 1.0 - float(keep.float().mean())
+    label = f"moe (E={num_experts}) model check, tokens routed alike" \
+        if num_experts else "model check"
+    log(f"{label}: logits err={e_logits:.3e} grad err={e_grad:.3e} "
+        f"loss flash={float(lf.detach()):.5f} dense={float(ld.detach()):.5f}"
+        + (f"; share routed apart={apart:.4e}" if num_experts else ""))
     if not (e_logits <= TOL_MODEL and e_grad <= TOL_MODEL):
         raise RuntimeError("flash model disagrees with dense attention")
+    if not apart <= TOL_ROUTED_APART:
+        raise RuntimeError(f"flash and dense attention sent {apart:.4e} of "
+                           f"the tokens to other experts")
+    return {"logits": e_logits, "grad": e_grad, "routed_apart": apart}
 
 
-def headline(bf, torch, dev, attn_fn, seq: int = SEQ):
-    """The main path's model, optimizer and batch (seeded, random weights).
-
-    ``TransformerLM`` at the repo's headline width with ``LAYERS`` layers
-    under ``DistributedNeighborAllreduceOptimizer`` around Adam (lr 1e-3),
-    one repeated batch of ``seq`` tokens. Needs ``bf.init()`` first.
-    """
-    model = bf.models.TransformerLM(
+def headline_model(bf, torch, dev, attn_fn, **moe):
+    """``TransformerLM`` at the repo's headline width with ``LAYERS`` layers
+    (bf16 compute, f32 parameters, seed 0); ``moe`` takes ``num_experts``
+    and ``moe_every``."""
+    return bf.models.TransformerLM(
         vocab_size=32768, num_layers=LAYERS, num_heads=16, d_model=2048,
-        d_ff=8192, dtype=torch.bfloat16, attn_fn=attn_fn, device=dev, seed=0)
-    opt = bf.DistributedNeighborAllreduceOptimizer(
-        torch.optim.Adam(model.parameters(), lr=1e-3), model,
-        bf.models.lm_loss)
+        d_ff=8192, dtype=torch.bfloat16, attn_fn=attn_fn, device=dev, seed=0,
+        **moe)
+
+
+def headline_batch(torch, dev, seq: int = SEQ):
     gen = torch.Generator(device=dev).manual_seed(1)
     toks = torch.randint(0, 32768, (1, seq), generator=gen, device=dev)
-    return model, opt, (toks, toks.roll(-1, dims=1))
+    return toks, toks.roll(-1, dims=1)
 
 
-def train(bf, fl, torch) -> dict:
-    bf.init()                                    # NCCL, world of one
-    dev = torch.device("cuda", torch.cuda.current_device())
-    model, opt, batch = headline(bf, torch, dev, fl.flash_attention)
+def chunked_lm_loss(model, batch):
+    """``chunked_ce_loss`` in the optimizer's ``loss_fn(model, batch)``."""
+    from bluefog_tpu_torch.parallel import chunked_ce_loss
+
+    return chunked_ce_loss(model, *batch, chunk=CE_CHUNK)
+
+
+def headline(bf, torch, dev, attn_fn, seq: int = SEQ, loss_fn=None,
+             **moe):
+    """The main path's model, optimizer and batch (seeded, random weights).
+
+    ``headline_model`` under ``DistributedNeighborAllreduceOptimizer``
+    around Adam (lr 1e-3) with ``loss_fn`` (default ``lm_loss``), one
+    repeated batch of ``seq`` tokens. Needs ``bf.init()`` first.
+    """
+    model = headline_model(bf, torch, dev, attn_fn, **moe)
+    opt = bf.DistributedNeighborAllreduceOptimizer(
+        torch.optim.Adam(model.parameters(), lr=1e-3), model,
+        loss_fn or bf.models.lm_loss)
+    return model, opt, headline_batch(torch, dev, seq)
+
+
+def _train_steps(fl, torch, opt, batch) -> dict:
+    """``WARMUP`` then ``STEPS`` timed steps, the launch counts set to 0
+    just before and read just after."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     fl.reset_launch_counts()
@@ -340,27 +462,223 @@ def train(bf, fl, torch) -> dict:
         losses.append(opt.step(batch)["loss"])
     torch.cuda.synchronize()
     dt = (time.perf_counter() - t0) / STEPS
-    counts = dict(fl.launch_counts)
-    losses = [float(x) for x in losses]
-    peak = torch.cuda.max_memory_allocated()
+    return {"counts": dict(fl.launch_counts), "dt": dt,
+            "losses": [float(x) for x in losses],
+            "peak": torch.cuda.max_memory_allocated()}
+
+
+def _check_training(label: str, run: dict, per_step: int) -> None:
+    total = WARMUP + STEPS
+    for name, c in run["counts"].items():
+        if c != per_step * total:
+            raise RuntimeError(f"{label}: {name} launched {c} times in "
+                               f"{total} steps, expected {per_step} a step")
+    losses = run["losses"]
+    if not all(math.isfinite(x) for x in losses):
+        raise RuntimeError(f"{label}: non-finite loss {losses}")
+    if not losses[-1] < losses[0]:
+        raise RuntimeError(f"{label}: loss did not fall on a repeated "
+                           f"batch {losses}")
+
+
+def train(bf, fl, torch) -> dict:
+    bf.init()                                    # NCCL, world of one
+    dev = torch.device("cuda", torch.cuda.current_device())
+    model, opt, batch = headline(bf, torch, dev, fl.flash_attention)
+    run = _train_steps(fl, torch, opt, batch)
+    dt, counts, losses, peak = (run["dt"], run["counts"], run["losses"],
+                                run["peak"])
     n_params = sum(p.numel() for p in model.parameters())
     log(f"train: layers={LAYERS} seq={SEQ} params={n_params} "
         f"ms/step={dt * 1e3:.3f} tokens/s={SEQ / dt:.1f} "
         f"peak_mem_GiB={peak / 2**30:.3f}")
     log("train losses: " + " ".join(f"{x:.5f}" for x in losses))
     log(f"train launches: {counts}")
-    total = WARMUP + STEPS
-    for name, c in counts.items():
-        if c != LAYERS * total:
-            raise RuntimeError(f"{name} launched {c} times in {total} steps "
-                               f"of {LAYERS} layers")
-    if not all(math.isfinite(x) for x in losses):
-        raise RuntimeError(f"non-finite loss {losses}")
-    if not losses[-1] < losses[0]:
-        raise RuntimeError(f"loss did not fall on a repeated batch {losses}")
+    _check_training("train", run, LAYERS)
     bf.shutdown()
     return {"counts": counts, "ms_per_step": dt * 1e3,
             "tokens_per_s": SEQ / dt, "peak_bytes": peak, "losses": losses}
+
+
+def _ce_errors(grads_full, loss_full, grads, loss) -> tuple:
+    """The errors, and the name of the parameter with the largest."""
+    diff = sum(float((g - grads_full[n]).float().square().sum())
+               for n, g in grads.items())
+    norm = sum(float(f.float().square().sum()) for f in grads_full.values())
+    per = {n: nerr(g, grads_full[n]) for n, g in grads.items()}
+    worst = max(per, key=per.get)
+    return {"loss": abs(loss - loss_full) / abs(loss_full),
+            "grad": per[worst], "grad_l2": math.sqrt(diff / norm)}, worst
+
+
+def ce_check(bf, fl, torch, dev) -> dict:
+    """``chunked_ce_loss`` against ``lm_loss`` on the headline model (bf16,
+    flash) and one batch: the loss and every gradient, within the
+    ``TOL_CE_*`` limits; then with one chunk's targets rolled by one
+    position, which must land beyond a limit."""
+    from bluefog_tpu_torch.parallel import chunked_ce_loss
+
+    model = headline_model(bf, torch, dev, fl.flash_attention)
+    toks, tgts = headline_batch(torch, dev)
+
+    def loss_and_grads(loss):
+        model.zero_grad(set_to_none=True)
+        loss.backward()
+        return float(loss.detach()), {n: p.grad for n, p in
+                                      model.named_parameters()}
+
+    loss_full, grads_full = loss_and_grads(bf.models.lm_loss(model,
+                                                             (toks, tgts)))
+    loss_c, grads_c = loss_and_grads(chunked_ce_loss(model, toks, tgts,
+                                                     chunk=CE_CHUNK))
+    errs, worst = _ce_errors(grads_full, loss_full, grads_c, loss_c)
+    rolled = tgts.clone()
+    rolled[:, :CE_CHUNK] = tgts[:, :CE_CHUNK].roll(1, dims=1)
+    loss_f, grads_f = loss_and_grads(chunked_ce_loss(model, toks, rolled,
+                                                     chunk=CE_CHUNK))
+    planted, worst_f = _ce_errors(grads_full, loss_full, grads_f, loss_f)
+    limits = {"loss": TOL_CE_LOSS, "grad": TOL_CE_GRAD,
+              "grad_l2": TOL_CE_GRAD_L2}
+
+    def beyond(e):
+        return sorted(n for n, v in e.items() if not v <= limits[n])
+
+    log(f"ce check (headline model, bf16, chunk {CE_CHUNK}): loss full="
+        f"{loss_full:.6f} chunked={loss_c:.6f} rel err={errs['loss']:.3e} "
+        f"grad max={errs['grad']:.3e} ({worst}) l2={errs['grad_l2']:.3e}")
+    log(f"ce check, planted (chunk 0's targets rolled by one): loss "
+        f"{loss_f:.6f} rel err={planted['loss']:.3e} grad max="
+        f"{planted['grad']:.3e} ({worst_f}) l2={planted['grad_l2']:.3e}; "
+        f"beyond the limits: {beyond(planted)}")
+    if beyond(errs):
+        raise RuntimeError(f"chunked_ce_loss disagrees with lm_loss beyond "
+                           f"{limits}: {errs}")
+    if not beyond(planted):
+        raise RuntimeError(f"the ce check missed the planted fault: "
+                           f"{planted}")
+    return {"errors": errs, "planted": planted}
+
+
+LM_BENCH_FORMS = (("full logits", False, False), ("chunked ce", False, True),
+                  ("remat + chunked ce", True, True))
+
+
+def lm_bench_phase(fl, torch, dev) -> dict:
+    """``lm_bench.run`` at its defaults in the three forms, each with the
+    launch counts and the peak memory reset just before and read just
+    after. Raises on a non-finite loss, on launch counts other than the
+    layers' per step (K1 twice under remat: the recompute), or unless the
+    chunked forms peak below the full-logits form."""
+    from bluefog_tpu_torch import lm_bench
+
+    args = lm_bench.DEFAULTS
+    steps = args["warmup"] + args["steps"]
+    out = {}
+    for name, remat, chunked in LM_BENCH_FORMS:
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fl.reset_launch_counts()
+        res = lm_bench.run(**args, remat=remat, chunked_ce=chunked,
+                           device=dev)
+        counts = dict(fl.launch_counts)
+        peak = torch.cuda.max_memory_allocated()
+        log(f"lm_bench {name}: peak_mem_GiB={peak / 2**30:.3f} launches "
+            f"{counts}")
+        layers = args["num_layers"]
+        want = {"flash_fwd": layers * (2 if remat else 1),
+                "flash_bwd_dq": layers, "flash_bwd_dkv": layers}
+        bad = {k: c for k, c in counts.items() if c != want[k] * steps}
+        if bad:
+            raise RuntimeError(f"lm_bench {name}: launches {bad} in {steps} "
+                               f"steps, expected {want} a step")
+        if not math.isfinite(res["final_loss"]):
+            raise RuntimeError(f"lm_bench {name}: non-finite loss {res}")
+        out[name] = dict(res, peak_bytes=peak, counts=counts)
+    full = out["full logits"]["peak_bytes"]
+    for name in ("chunked ce", "remat + chunked ce"):
+        if not out[name]["peak_bytes"] < full:
+            raise RuntimeError(f"lm_bench {name} peaked at "
+                               f"{out[name]['peak_bytes']} bytes, not below "
+                               f"the full logits' {full}")
+    return out
+
+
+def switch_check(bf, torch, dev) -> dict:
+    """One f32 SwitchFFN (d 256, d_ff 1024, E 4) on the card with TF32 off
+    against the same weights on the CPU: output and every gradient within
+    ``TOL_SWITCH`` (``nerr``), routing identical."""
+    gen = torch.Generator().manual_seed(17)
+    x = torch.randn((2, 320, 256), generator=gen)
+    cot = torch.randn((2, 320, 256), generator=gen)
+    weights = bf.parallel.SwitchFFN(256, 4, 1024, device="cpu",
+                                    seed=5).state_dict()
+    outs, grads, routes = {}, {}, {}
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False    # a true f32 product
+    try:
+        for where in ("cpu", dev):
+            mod = bf.parallel.SwitchFFN(256, 4, 1024, device=where)
+            mod.load_state_dict(weights)
+            xw = x.to(where, copy=True).requires_grad_(True)
+            y = mod(xw)
+            (y * cot.to(where)).sum().backward()
+            key = str(where)
+            outs[key] = y.detach().cpu()
+            grads[key] = [xw.grad.cpu()] + [p.grad.cpu()
+                                            for p in mod.parameters()]
+            routes[key] = mod.route(xw.detach())[1].cpu()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    cpu, card = "cpu", str(dev)
+    errs = {"out": nerr(outs[card], outs[cpu]),
+            "grad": max(nerr(a, b) for a, b in zip(grads[card], grads[cpu]))}
+    same = bool(torch.equal(routes[card], routes[cpu]))
+    experts = len(set(routes[cpu].flatten().tolist()))
+    log(f"switch check (f32, d 256, d_ff 1024, E 4, card vs CPU): out="
+        f"{errs['out']:.3e} grad max={errs['grad']:.3e} routing identical="
+        f"{same} experts used={experts}")
+    if not (errs["out"] <= TOL_SWITCH and errs["grad"] <= TOL_SWITCH):
+        raise RuntimeError(f"SwitchFFN on the card disagrees with the CPU "
+                           f"beyond {TOL_SWITCH}: {errs}")
+    if not same:
+        raise RuntimeError("SwitchFFN routed tokens differently on the card")
+    return dict(errs, routing_identical=same)
+
+
+def moe_train(bf, fl, torch) -> dict:
+    """The MoE LM at the headline width (``MOE_EXPERTS`` experts, blocks 1
+    and 3 MoE) under ``DistributedNeighborAllreduceOptimizer`` around Adam
+    with ``chunked_ce_loss``: ms/step, tokens/s, mfu, peak memory, losses,
+    and ``LAYERS`` launches of each kernel per step."""
+    from bluefog_tpu_torch import lm_bench
+
+    bf.init()
+    try:
+        dev = torch.device("cuda", torch.cuda.current_device())
+        model, opt, batch = headline(
+            bf, torch, dev, fl.flash_attention, loss_fn=chunked_lm_loss,
+            num_experts=MOE_EXPERTS, moe_every=2)
+        run = _train_steps(fl, torch, opt, batch)
+    finally:
+        bf.shutdown()
+    dt = run["dt"]
+    n_mat = lm_bench.matmul_param_count(model)
+    n_params = sum(p.numel() for p in model.parameters())
+    flops = lm_bench.model_flops(n_mat, 1, SEQ, LAYERS, 2048)
+    mfu = flops / dt / PEAK_BF16
+    log(f"moe train: E={MOE_EXPERTS} layers={LAYERS} (MoE blocks 1, 3) "
+        f"seq={SEQ} params={n_params} matmul params={n_mat} "
+        f"TFLOP/step={flops / 1e12:.3f} ms/step={dt * 1e3:.3f} "
+        f"tokens/s={SEQ / dt:.1f} mfu={mfu:.4f} "
+        f"peak_mem_GiB={run['peak'] / 2**30:.3f}")
+    log("moe train losses: " + " ".join(f"{x:.5f}" for x in run["losses"]))
+    log(f"moe train launches: {run['counts']}")
+    _check_training("moe train", run, LAYERS)
+    return {"counts": run["counts"], "ms_per_step": dt * 1e3,
+            "tokens_per_s": SEQ / dt, "mfu": mfu, "peak_bytes": run["peak"],
+            "params": n_params, "matmul_params": n_mat,
+            "losses": run["losses"]}
 
 
 def _redraw_norms(model, torch, gen) -> None:
@@ -606,7 +924,7 @@ def main() -> int:
     log(f"card: {card}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda}")
 
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     logs = _build.build()
     secs = time.perf_counter() - t0
     log(f"build: {secs:.1f} s")
@@ -633,6 +951,15 @@ def main() -> int:
 
     run = train(bf, fl, torch)
     torch.cuda.empty_cache()
+    ce = ce_check(bf, fl, torch, dev)
+    torch.cuda.empty_cache()
+    lm_bench_runs = lm_bench_phase(fl, torch, dev)
+    torch.cuda.empty_cache()
+    moe = {"check": model_check(bf, fl, torch, dev, num_experts=4),
+           "switch": switch_check(bf, torch, dev)}
+    torch.cuda.empty_cache()
+    moe["train"] = moe_train(bf, fl, torch)
+    torch.cuda.empty_cache()
     vision = dict(check=vision_check(bf, torch, dev))
     torch.cuda.empty_cache()
     vision["train"] = vision_train(bf, torch, card)
@@ -650,7 +977,9 @@ def main() -> int:
     os.makedirs(os.path.dirname(OUT), exist_ok=True)
     with open(OUT, "w") as f:
         json.dump({"card": card, "kernels": kernels, "train": run,
+                   "ce": ce, "lm_bench": lm_bench_runs, "moe": moe,
                    "vision": vision}, f, indent=1)
+    log(f"wall: {time.perf_counter() - t_start:.1f} s after the card check")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,12 +1,17 @@
 #!/usr/bin/env python3
 """Where a train step of the port spends its device time.
 
-    python3 scripts/torch_port_step_profile.py [--model lm|resnet50]
+    python3 scripts/torch_port_step_profile.py [--model lm|moe|resnet50]
+                                               [--chunked-ce]
 
 ``lm`` (default) builds ``chip_smoke.py``'s main path
 (``chip_smoke.headline``: the headline-width flash ``TransformerLM`` under
 ``DistributedNeighborAllreduceOptimizer`` around Adam, ``LAYERS`` layers,
-``SEQ`` tokens), runs ``WARMUP`` steps, then traces ``STEPS`` steps.
+``SEQ`` tokens; ``--chunked-ce`` trains it with ``chunked_ce_loss`` in
+place of the full-logits loss), runs ``WARMUP`` steps, then traces
+``STEPS`` steps. ``moe`` does the same for ``chip_smoke.py``'s MoE LM at
+the headline width (``MOE_EXPERTS`` experts, blocks 1 and 3 MoE, always
+``chunked_ce_loss``).
 ``resnet50`` builds the benchmark's step (``bluefog_tpu_torch.bench.setup``:
 ResNet-50, batch 128 at 224x224, SGD 0.1/0.9, cuDNN autotuning on), runs
 ``bench.WARMUP`` steps, then traces 10 steps. Both first time the steps
@@ -69,10 +74,12 @@ def _group(name: str) -> str:
     return "other elementwise"
 
 
-def _lm():
+def _lm(chunked_ce: bool = False, **moe):
     bf.init()
     dev = torch.device("cuda", torch.cuda.current_device())
-    _, opt, batch = chip_smoke.headline(bf, torch, dev, flash_attention)
+    loss = chip_smoke.chunked_lm_loss if chunked_ce else None
+    _, opt, batch = chip_smoke.headline(bf, torch, dev, flash_attention,
+                                        loss_fn=loss, **moe)
     return opt, itertools.repeat(batch), chip_smoke.WARMUP, chip_smoke.STEPS
 
 
@@ -133,8 +140,14 @@ def _union_us(events) -> float:
     return busy
 
 
-def main(model: str) -> None:
-    opt, feed, warmup, steps = {"lm": _lm, "resnet50": _resnet50}[model]()
+def main(model: str, chunked_ce: bool = False) -> None:
+    if model == "resnet50":
+        opt, feed, warmup, steps = _resnet50()
+    elif model == "moe":
+        opt, feed, warmup, steps = _lm(
+            True, num_experts=chip_smoke.MOE_EXPERTS, moe_every=2)
+    else:
+        opt, feed, warmup, steps = _lm(chunked_ce)
     for _ in range(warmup):
         opt.step(next(feed))
     torch.cuda.synchronize()
@@ -163,7 +176,8 @@ def main(model: str) -> None:
     busy_us = _union_us(events)
     span_us = max(ts + dur for _, ts, dur in events) - \
         min(ts for _, ts, _ in events)
-    print(f"model {model}; card: {torch.cuda.get_device_name(0)}")
+    print(f"model {model} (chunked ce: {chunked_ce or model == 'moe'}); "
+          f"card: {torch.cuda.get_device_name(0)}")
     print(f"wall ms/step {plain_wall / steps * 1e3:.3f} without the profiler, "
           f"{wall / steps * 1e3:.3f} traced; host ms/step issuing one step "
           f"{sum(host) / steps * 1e3:.3f} (min {min(host) * 1e3:.3f}); "
@@ -195,5 +209,9 @@ def main(model: str) -> None:
 
 if __name__ == "__main__":
     p = argparse.ArgumentParser(description=__doc__)
-    p.add_argument("--model", choices=("lm", "resnet50"), default="lm")
-    main(p.parse_args().model)
+    p.add_argument("--model", choices=("lm", "moe", "resnet50"),
+                   default="lm")
+    p.add_argument("--chunked-ce", action="store_true",
+                   help="train the LM with chunked_ce_loss")
+    a = p.parse_args()
+    main(a.model, a.chunked_ce)

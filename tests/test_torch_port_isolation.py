@@ -14,7 +14,7 @@ import pytest
 import torch
 
 import bluefog_tpu_torch as bft
-from bluefog_tpu_torch import bench
+from bluefog_tpu_torch import bench, lm_bench
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -42,6 +42,9 @@ def test_port_imports_no_jax():
 _ENTRIES = {
     "init": lambda: bft.init(),
     "TransformerLM": lambda: bft.models.TransformerLM(vocab_size=16),
+    "MoETransformerLM": lambda: bft.models.MoETransformerLM(16, 4),
+    "SwitchFFN": lambda: bft.parallel.SwitchFFN(8, 4, 16),
+    "lm_bench.run": lambda: lm_bench.run(64, 32, 1, 2, 1, 16, 1, 0, False),
     "ResNet50": lambda: bft.models.ResNet50(),
     "VGG16": lambda: bft.models.VGG16(),
     "bench.setup": lambda: bench.setup(),
