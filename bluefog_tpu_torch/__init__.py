@@ -29,19 +29,44 @@ from .runtime.state import (
     local_size,
     local_rank,
     rank,
+    num_machines,
+    machine_size,
+    is_homogeneous,
     set_topology,
     load_topology,
     is_topo_weighted,
     in_neighbor_ranks,
     out_neighbor_ranks,
+    set_skip_negotiate_stage,
+    get_skip_negotiate_stage,
+    mpi_threads_supported,
+    nccl_built,
 )
+from .runtime.handles import poll, synchronize, wait
 
 # ops
 from .ops import (
     allreduce,
-    barrier,
+    allreduce_,
+    allreduce_nonblocking,
+    allreduce_nonblocking_,
     broadcast,
+    broadcast_,
+    broadcast_nonblocking,
+    broadcast_nonblocking_,
+    allgather,
+    allgather_nonblocking,
+    allgather_v,
+    allgather_v_nonblocking,
+    pair_gossip,
+    pair_gossip_nonblocking,
+    barrier,
     neighbor_allreduce,
+    neighbor_allreduce_nonblocking,
+    hierarchical_neighbor_allreduce,
+    hierarchical_neighbor_allreduce_nonblocking,
+    neighbor_allgather,
+    neighbor_allgather_nonblocking,
     CombinePlan,
     apply_plan,
 )
@@ -51,10 +76,13 @@ from .optimizers import (
     DistributedGradientAllreduceOptimizer,
     DistributedAllreduceOptimizer,
     DistributedNeighborAllreduceOptimizer,
+    DistributedHierarchicalNeighborAllreduceOptimizer,
+    DistributedShardedAllreduceOptimizer,
 )
 
 # parameter sync utilities (reference: torch/utility.py)
-from .utils import broadcast_parameters, allreduce_parameters
+from .utils import (broadcast_parameters, allreduce_parameters,
+                    broadcast_optimizer_state)
 
 from . import models
 from . import parallel

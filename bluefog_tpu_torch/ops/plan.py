@@ -9,10 +9,10 @@ each distinct shift s, and rank j computes
 
 Two strategies, chosen per graph by the same rule as the JAX package:
 
-  * shifts: per shift ``s`` one ``batch_isend_irecv`` round — send to
-    ``(me+s) % n``, receive from ``(me-s) % n`` — and accumulate the
-    weighted arrival. Optimal for sparse graphs (Expo-2 has ceil(log2 n)
-    shifts; a dynamic one-peer step has 1).
+  * shifts: per shift ``s`` send to ``(me+s) % n`` and receive from
+    ``(me-s) % n``, all shifts in one ``batch_isend_irecv``, and accumulate
+    the weighted arrivals in shift order. Optimal for sparse graphs
+    (Expo-2 has ceil(log2 n) shifts; a dynamic one-peer step has 1).
   * gather: one ``all_gather`` and a weighted sum with column ``me`` of W.
     Better for dense graphs where the shift count approaches n.
 
@@ -23,7 +23,7 @@ and the combine is ``1.0 * x`` through the same code.
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -68,43 +68,81 @@ class CombinePlan:
         return self.W if self.use_gather else self.rows
 
 
-def spmd_combine(w: np.ndarray, tensors: Sequence[torch.Tensor], *,
-                 rank: int, n: int, shifts: Sequence[int],
-                 use_gather: bool = False, group=None) -> List[torch.Tensor]:
-    """Weighted neighbor combine of this rank's ``tensors``.
+def spmd_combine_start(w: np.ndarray, tensors: Sequence[torch.Tensor], *,
+                       rank: int, n: int, shifts: Sequence[int],
+                       use_gather: bool = False, group=None
+                       ) -> Tuple[list, Callable[[], List[torch.Tensor]]]:
+    """Issue the combine's transfers; returns ``(work, finish)``.
 
     ``w`` is the plan's weight array (``CombinePlan.weight_array()``):
     ``[k+1, n]`` rows for the shift strategy or the full ``[n, n]`` matrix
-    for the gather strategy. Every rank calls this with the same plan.
-    Returns new tensors; the inputs are not modified.
+    for the gather strategy. ``rank`` and ``n`` are this process's rank and
+    the size WITHIN ``group`` (default: the whole world); each transfer
+    names its peer by global rank. Every rank of the group calls this with
+    the same plan. Every shift's sends and receives go out in one
+    ``batch_isend_irecv``, one receive buffer per shift. Once every ``Work``
+    in ``work`` is waited on, ``finish()`` returns the new tensors; the
+    inputs are not modified.
     """
     me = rank
     col = w[:, me]
     acc_ts = [_acc_dtype(x.dtype) for x in tensors]
     if use_gather:
-        outs = []
-        for x, acc_t in zip(tensors, acc_ts):
+        gathered, work = [], []
+        for x in tensors:
             xs = [torch.empty_like(x) for _ in range(n)]
-            dist.all_gather(xs, x.contiguous(), group=group)
-            acc = float(col[0]) * xs[0].to(acc_t)
-            for i in range(1, n):
-                acc = acc + float(col[i]) * xs[i].to(acc_t)
-            outs.append(acc.to(x.dtype))
-        return outs
-    accs = [float(col[0]) * x.to(acc_t) for x, acc_t in zip(tensors, acc_ts)]
+            work.append(dist.all_gather(xs, x.contiguous(), group=group,
+                                        async_op=True))
+            gathered.append(xs)
+
+        def finish_gather() -> List[torch.Tensor]:
+            outs = []
+            for x, acc_t, xs in zip(tensors, acc_ts, gathered):
+                acc = float(col[0]) * xs[0].to(acc_t)
+                for i in range(1, n):
+                    acc = acc + float(col[i]) * xs[i].to(acc_t)
+                outs.append(acc.to(x.dtype))
+            return outs
+
+        return work, finish_gather
     sends = [x.contiguous() for x in tensors]
+    recvs = [[torch.empty_like(x) for x in sends] for _ in shifts]
+    ops = []
     for k, s in enumerate(shifts):
-        dst, src = (me + s) % n, (me - s) % n
-        recvs = [torch.empty_like(x) for x in sends]
-        ops = []
-        for x, r in zip(sends, recvs):
+        dst = _global_rank(group, (me + s) % n)
+        src = _global_rank(group, (me - s) % n)
+        for x, r in zip(sends, recvs[k]):
             ops.append(dist.P2POp(dist.isend, x, dst, group=group))
             ops.append(dist.P2POp(dist.irecv, r, src, group=group))
-        for req in dist.batch_isend_irecv(ops):
-            req.wait()
-        wk = float(col[k + 1])
-        accs = [a + wk * r.to(a.dtype) for a, r in zip(accs, recvs)]
-    return [a.to(x.dtype) for a, x in zip(accs, tensors)]
+    work = dist.batch_isend_irecv(ops) if ops else []
+
+    def finish() -> List[torch.Tensor]:
+        accs = [float(col[0]) * x.to(acc_t) for x, acc_t in zip(tensors,
+                                                                  acc_ts)]
+        for k in range(len(shifts)):
+            wk = float(col[k + 1])
+            accs = [a + wk * r.to(a.dtype) for a, r in zip(accs, recvs[k])]
+        return [a.to(x.dtype) for a, x in zip(accs, tensors)]
+
+    return work, finish
+
+
+def _global_rank(group, r: int) -> int:
+    """Rank ``r`` of ``group`` as a global rank, which ``P2POp`` takes."""
+    return r if group is None else dist.get_global_rank(group, r)
+
+
+def spmd_combine(w: np.ndarray, tensors: Sequence[torch.Tensor], *,
+                 rank: int, n: int, shifts: Sequence[int],
+                 use_gather: bool = False, group=None) -> List[torch.Tensor]:
+    """Weighted neighbor combine of this rank's ``tensors``: the blocking
+    form of :func:`spmd_combine_start` (same arguments)."""
+    work, finish = spmd_combine_start(w, tensors, rank=rank, n=n,
+                                      shifts=shifts, use_gather=use_gather,
+                                      group=group)
+    for req in work:
+        req.wait()
+    return finish()
 
 
 def apply_plan(plan: CombinePlan, tensors: Sequence[torch.Tensor]

@@ -30,6 +30,7 @@ import torch
 import torch.distributed as dist
 
 from .. import topology as topology_util
+from . import handles
 
 logger = logging.getLogger("bluefog_tpu_torch")
 
@@ -60,12 +61,27 @@ class _State:
         self.is_topo_weighted = False
         self.owns_group = False
         self.store_dir: Optional[str] = None
+        self.skip_negotiate = False
+        # this rank's machine subgroups (``dist.group.WORLD`` when one spans
+        # every rank); None without a homogeneous layout
+        self.local_group = None
+        self.machine_group = None
         self._plan_cache: dict = {}
 
     def check_initialized(self) -> None:
         if not self.initialized:
             raise RuntimeError(
                 "bluefog_tpu_torch is not initialized; call bf.init() first")
+
+    def check_homogeneous(self) -> None:
+        """Hierarchical ops need every machine to hold ``local_size`` ranks
+        (the reference requires is_homogeneous too, mpi_ops.py:693-741)."""
+        self.check_initialized()
+        if self.local_group is None:
+            raise RuntimeError(
+                f"hierarchical ops need a homogeneous machine layout; size "
+                f"{self.size} is not a multiple of local_size "
+                f"{self.local_size}")
 
 
 _state = _State()
@@ -88,6 +104,7 @@ def init(
     init_method: Optional[str] = None,
     rank: Optional[int] = None,
     world_size: Optional[int] = None,
+    local_size: Optional[int] = None,
 ) -> None:
     """Join (or form) the process group and install the initial topology.
 
@@ -99,6 +116,10 @@ def init(
       device: ``"cuda"`` (default) or ``"cpu"``; picks NCCL or gloo.
       init_method: a ``torch.distributed`` URL (``file://...`` or
         ``tcp://host:port``); with ``rank`` and ``world_size``.
+      local_size: ranks per machine for the hierarchical ops (default:
+        ``LOCAL_WORLD_SIZE``, else the world size). Rank r sits on machine
+        ``r // local_size`` at local index ``r % local_size``, torchrun's
+        layout and the JAX machine mesh's.
     """
     st = _state
     if st.initialized:
@@ -127,15 +148,16 @@ def init(
     st.rank = dist.get_rank()
     env_local_size = _env_int("LOCAL_WORLD_SIZE")
     env_local_rank = _env_int("LOCAL_RANK")
-    st.local_size = env_local_size if env_local_size else st.size
-    st.local_rank = env_local_rank if env_local_rank is not None else \
-        st.rank % st.local_size
+    st.local_size = int(local_size or env_local_size or st.size)
+    st.local_rank = env_local_rank if env_local_rank is not None and \
+        local_size is None else st.rank % st.local_size
     if dev.type == "cuda":
         idx = dev.index if dev.index is not None else \
             st.local_rank % torch.cuda.device_count()
         dev = torch.device("cuda", idx)
         torch.cuda.set_device(dev)
     st.device = dev
+    _make_subgroups(st)
     st._plan_cache = {}
     st.topology = None
     st.initialized = True
@@ -163,8 +185,34 @@ def shutdown() -> None:
         shutil.rmtree(st.store_dir, ignore_errors=True)
         st.store_dir = None
     st._plan_cache.clear()
+    st.local_group = st.machine_group = None
+    st.skip_negotiate = False
     st.topology = None
     st.initialized = False
+    handles.clear()
+
+
+def _make_subgroups(st: _State) -> None:
+    """One local group per machine and one machine group per local index
+    (ranks ``{m * L + l : m}``), created by every rank in the same order as
+    ``dist.new_group`` requires. A group that spans the world is the world.
+    Without a homogeneous layout both stay None (JAX keeps no machine mesh
+    then, ``bluefog_tpu/runtime/state.py:214-229``)."""
+    st.local_group = st.machine_group = None
+    n, L = st.size, st.local_size
+    if n % L:
+        logger.warning("size %d not divisible by local_size %d; "
+                       "hierarchical ops disabled", n, L)
+        return
+    m = n // L
+
+    def group(ranks):
+        return dist.group.WORLD if len(ranks) == n else dist.new_group(ranks)
+
+    local = [group([k * L + l for l in range(L)]) for k in range(m)]
+    machine = [group([k * L + l for k in range(m)]) for l in range(L)]
+    st.local_group = local[st.rank // L]
+    st.machine_group = machine[st.rank % L]
 
 
 # -- introspection (parity: basics.py:120-186) -----------------------------
@@ -177,6 +225,23 @@ def size() -> int:
 def local_size() -> int:
     _state.check_initialized()
     return _state.local_size
+
+
+def num_machines() -> int:
+    _state.check_initialized()
+    return _state.size // _state.local_size
+
+
+def machine_size() -> int:
+    """The number of machines, as the JAX package answers it."""
+    return num_machines()
+
+
+def is_homogeneous() -> bool:
+    """Every machine holds ``local_size`` ranks (reference:
+    mpi_controller.cc:71-96)."""
+    _state.check_initialized()
+    return _state.size % _state.local_size == 0
 
 
 def rank() -> int:
@@ -240,3 +305,29 @@ def out_neighbor_ranks(rank_: Optional[int] = None) -> List[int]:
     _state.check_initialized()
     r = _state.rank if rank_ is None else rank_
     return topology_util.out_neighbor_ranks(_state.topology, r)
+
+
+def set_skip_negotiate_stage(value: bool) -> None:
+    """Skip the ops' eager cross-rank checks (reference: basics.py:293-306).
+    The port's negotiate stage is one small all-gather of each tensor's
+    shape and dtype before ``allgather``, which turns a mismatch across
+    ranks into a ``ValueError`` instead of a hang."""
+    _state.check_initialized()
+    _state.skip_negotiate = bool(value)
+
+
+def get_skip_negotiate_stage() -> bool:
+    _state.check_initialized()
+    return _state.skip_negotiate
+
+
+def mpi_threads_supported() -> bool:
+    """True, as in the JAX package: ops may be issued from any thread
+    (the reference asks MPI for MPI_THREAD_MULTIPLE, basics.py:129-143)."""
+    return True
+
+
+def nccl_built() -> bool:
+    """Whether ``torch.distributed`` has NCCL, the transport the port uses
+    on CUDA (the JAX package answers False: it has no NCCL)."""
+    return dist.is_available() and dist.is_nccl_available()

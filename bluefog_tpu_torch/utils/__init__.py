@@ -2,7 +2,9 @@
 
 from .data import prefetch_to_device
 from .interop import params_from_jax
-from .params import allreduce_parameters, broadcast_parameters
+from .params import (allreduce_parameters, broadcast_optimizer_state,
+                     broadcast_parameters)
 
-__all__ = ["broadcast_parameters", "allreduce_parameters", "params_from_jax",
+__all__ = ["broadcast_parameters", "allreduce_parameters",
+           "broadcast_optimizer_state", "params_from_jax",
            "prefetch_to_device"]

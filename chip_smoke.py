@@ -26,25 +26,44 @@ Phases (each raises on failure; the script then exits non-zero):
    to 0 just before and read just after; each kernel must show ``LAYERS``
    launches per step. Before that, a small model checks flash logits and
    gradients against dense attention on the card.
-5. ce check: ``chunked_ce_loss`` against the full-logits ``lm_loss`` on the
+5. optimizers (world 1, NCCL): (a) the collectives surface on a
+   ``[4096, 2048]`` tensor in f32 and bf16 (``allgather``, ``allgather_v``,
+   ``neighbor_allgather``, ``pair_gossip`` with itself at 0.75/0.25,
+   ``hierarchical_neighbor_allreduce``, the hierarchical-local
+   ``allreduce``, the in-place ``_`` forms and one ``*_nonblocking`` form
+   of each kind through ``poll``/``synchronize``), each at max abs error 0
+   from its closed form, a second ``synchronize`` raising; (b) the headline
+   LM under ``DistributedShardedAllreduceOptimizer`` (ZeRO-1) around Adam,
+   2 warm-up and 5 timed steps: ms/step, tokens/s, peak memory, falling
+   losses, ``LAYERS`` launches of each kernel per step; (c) 3 steps each
+   of ``DistributedGradientAllreduceOptimizer`` twice (the card's
+   run-to-run floor) and of ZeRO-1 from the same seed, the largest
+   per-tensor parameter difference within ``TOL_ZERO1``, and a planted
+   fault (the updated shard written back shifted by one element) beyond
+   it; (d) ``DistributedHierarchicalNeighborAllreduceOptimizer`` against
+   ``DistributedNeighborAllreduceOptimizer`` the same way; (e) NCCL's
+   ``reduce_scatter`` and ``all_gather`` of the 335,562,752-element f32
+   buffer (out of place and in place, as the step runs them), CUDA events,
+   beside the copy bound.
+6. ce check: ``chunked_ce_loss`` against the full-logits ``lm_loss`` on the
    headline model in bf16, one batch: the loss and every gradient within
    ``TOL_CE_*``; one chunk's targets rolled by one position must land
    beyond a limit.
-6. lm_bench: ``python -m bluefog_tpu_torch.lm_bench``'s ``run`` at its
+7. lm_bench: ``python -m bluefog_tpu_torch.lm_bench``'s ``run`` at its
    defaults (the headline, plain Adam, 3 warm-up and 20 timed steps) in
    three forms: full logits, ``--chunked-ce``, ``--remat --chunked-ce``.
    Each prints its JSON line (ms/step, tokens/s, mfu against the H100's
    bf16 peak) and its peak memory; each kernel must launch ``LAYERS`` times
    a step (K1 twice that under remat), and the chunked forms must peak
    below the full-logits form.
-7. moe: (a) a small bf16 MoE LM, flash against dense attention (the
+8. moe: (a) a small bf16 MoE LM, flash against dense attention (the
    share of tokens routed apart, then logits and gradients over the tokens
    routed alike); (b) a SwitchFFN in f32 on the card against the CPU; (c)
    the MoE LM at the headline width (8 experts, blocks 1 and 3 MoE) under the
    decentralized optimizer with ``chunked_ce_loss``, 2 warm-up and 5 timed
    steps: ms/step, tokens/s, mfu, peak memory, falling losses, ``LAYERS``
    launches of each kernel per step.
-8. vision: ResNet-50 at full width (1000 classes, 224x224), the model of
+9. vision: ResNet-50 at full width (1000 classes, 224x224), the model of
    ``python -m bluefog_tpu_torch.bench``. A check of the bf16
    ``channels_last`` model against the same weights in f32 on the card
    (logits, every gradient, the BN buffers after one train-mode forward;
@@ -159,6 +178,17 @@ TOL_CE_GRAD_L2 = 3e-3
 MOE_EXPERTS = 8
 TOL_ROUTED_APART = 2e-2
 TOL_SWITCH = 1e-5
+
+# the optimizers phase. (a) every op at world 1 against its closed form in
+# plain torch on OPS_SHAPE, exactly. (c) and (d): the largest over the
+# parameter tensors of |a - b|_2 / |b - p0|_2 after OPT_CHECK_STEPS Adam
+# steps from one seed (p0 the initial parameters): the difference of two
+# runs against the distance the reference run moved. The reference's
+# run-to-run floor measured 0 on an H100 (PERF.md: the step is
+# deterministic there), so the limit is 0; the planted fault read 32.1.
+OPS_SHAPE = (4096, 2048)
+OPT_CHECK_STEPS = 3
+TOL_ZERO1 = 0.0
 
 KERNELS = {
     "flash_fwd": ("bluefog_tpu_torch/parallel/csrc/flash_fwd.cu",
@@ -498,6 +528,227 @@ def train(bf, fl, torch) -> dict:
     bf.shutdown()
     return {"counts": counts, "ms_per_step": dt * 1e3,
             "tokens_per_s": SEQ / dt, "peak_bytes": peak, "losses": losses}
+
+
+def ops_check(bf, torch, dev) -> dict:
+    """(a) The collectives surface at world 1 on an ``OPS_SHAPE`` tensor in
+    f32 and bf16, each against its closed form written in plain torch: max
+    abs error 0, shapes equal. Raises otherwise, when an in-place form does
+    not return its input, or when a second ``synchronize`` of a handle does
+    not raise."""
+    gen = torch.Generator(device=dev).manual_seed(21)
+    base = torch.randn(OPS_SHAPE, generator=gen, device=dev)
+    errs = {}
+    for dt in (torch.float32, torch.bfloat16):
+        x = base.to(dt)
+        got = {
+            "allgather": (bf.allgather(x), x),
+            "allgather_v": (bf.allgather_v(x), x),
+            "neighbor_allgather": (bf.neighbor_allgather(x), x[:0]),
+            "pair_gossip": (bf.pair_gossip(x, [0], 0.75, 0.25),
+                            0.75 * x + 0.25 * x),
+            "hierarchical_neighbor_allreduce": (
+                bf.hierarchical_neighbor_allreduce(x), x),
+            "allreduce(is_hierarchical_local)": (
+                bf.allreduce(x, is_hierarchical_local=True), x),
+        }
+        for name, fn in (
+                ("allreduce_", bf.allreduce_),
+                ("broadcast_", lambda y: bf.broadcast_(y, 0)),
+                ("allreduce_nonblocking_", lambda y: bf.synchronize(
+                    bf.allreduce_nonblocking_(y))),
+                ("broadcast_nonblocking_", lambda y: bf.synchronize(
+                    bf.broadcast_nonblocking_(y, 0)))):
+            y = x.clone()
+            if fn(y) is not y:
+                raise RuntimeError(f"{name} did not return its input")
+            got[name] = (y, x)
+        issued = {
+            "allreduce_nonblocking": (bf.allreduce_nonblocking(x), x),
+            "broadcast_nonblocking": (bf.broadcast_nonblocking(x, 0), x),
+            "allgather_nonblocking": (bf.allgather_nonblocking(x), x),
+            "allgather_v_nonblocking": (bf.allgather_v_nonblocking(x), x),
+            "pair_gossip_nonblocking": (bf.pair_gossip_nonblocking(
+                x, [0], 0.75, 0.25), 0.75 * x + 0.25 * x),
+            "neighbor_allreduce_nonblocking": (
+                bf.neighbor_allreduce_nonblocking(x), x),
+            "hierarchical_neighbor_allreduce_nonblocking": (
+                bf.hierarchical_neighbor_allreduce_nonblocking(x), x),
+            "neighbor_allgather_nonblocking": (
+                bf.neighbor_allgather_nonblocking(x), x[:0]),
+        }
+        for name, (h, want) in issued.items():
+            while not bf.poll(h):
+                time.sleep(1e-4)
+            got[name] = (bf.synchronize(h), want)
+            try:
+                bf.synchronize(h)
+            except ValueError:
+                pass
+            else:
+                raise RuntimeError(f"a second synchronize of {name} did not "
+                                   f"raise")
+        torch.cuda.synchronize()
+        for name, (out, want) in got.items():
+            if out.shape != want.shape or out.dtype != want.dtype:
+                raise RuntimeError(
+                    f"{name} ({dt}): {out.dtype}{tuple(out.shape)} where "
+                    f"{want.dtype}{tuple(want.shape)}")
+            errs[f"{name} {str(dt)[6:]}"] = float(
+                (out.float() - want.float()).abs().max()) \
+                if out.numel() else 0.0
+    log(f"ops check (world 1, {list(OPS_SHAPE)}, f32 and bf16): "
+        f"{len(errs)} results, max abs err {max(errs.values()):.1e}")
+    bad = {k: e for k, e in errs.items() if e != 0.0}
+    if bad:
+        raise RuntimeError(f"ops disagree with their closed forms: {bad}")
+    return errs
+
+
+def zero1_train(bf, fl, torch, dev) -> dict:
+    """(b) The headline LM under ``DistributedShardedAllreduceOptimizer``
+    around Adam (lr 1e-3), ``WARMUP`` then ``STEPS`` timed steps."""
+    model = headline_model(bf, torch, dev, fl.flash_attention)
+    opt = bf.DistributedShardedAllreduceOptimizer(
+        torch.optim.Adam(model.parameters(), lr=1e-3), model,
+        bf.models.lm_loss)
+    run = _train_steps(fl, torch, opt, headline_batch(torch, dev))
+    dt = run["dt"]
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"zero1 train: layers={LAYERS} seq={SEQ} params={n_params} "
+        f"ms/step={dt * 1e3:.3f} tokens/s="
+        f"{SEQ / dt:.1f} peak_mem_GiB={run['peak'] / 2**30:.3f}")
+    log("zero1 train losses: " + " ".join(f"{x:.5f}" for x in run["losses"]))
+    log(f"zero1 train launches: {run['counts']}")
+    _check_training("zero1 train", run, LAYERS)
+    return {"counts": run["counts"], "ms_per_step": dt * 1e3,
+            "tokens_per_s": SEQ / dt, "peak_bytes": run["peak"],
+            "losses": run["losses"], "params": n_params}
+
+
+def _shift_written_shard(opt) -> None:
+    """The planted fault: every update of the shard is written back one
+    element off (the shard rolled by one after the optimizer's step). A
+    step hook holds no reference to the optimizer: a patched ``step``
+    closing over it would make a cycle that keeps the model's buffers on
+    the card until the garbage collector runs."""
+    (shard,) = opt.base.param_groups[0]["params"]
+    opt.base.register_step_post_hook(
+        lambda *_: shard.data.copy_(shard.data.roll(1)))
+
+
+def _check_steps(bf, fl, torch, dev, cls, plant=False) -> list:
+    """The parameters after ``OPT_CHECK_STEPS`` Adam steps of the headline
+    LM (seed 0) under ``cls`` on the headline batch."""
+    model = headline_model(bf, torch, dev, fl.flash_attention)
+    opt = cls(torch.optim.Adam(model.parameters(), lr=1e-3), model,
+              bf.models.lm_loss)
+    if plant:
+        _shift_written_shard(opt)
+    batch = headline_batch(torch, dev)
+    for _ in range(OPT_CHECK_STEPS):
+        opt.step(batch)
+    return [p.detach().clone() for p in model.parameters()]
+
+
+def param_diff(a, b, p0) -> float:
+    """max over tensors of |a - b|_2 / |b - p0|_2, in f64."""
+    import torch
+
+    norm = torch.linalg.vector_norm
+    return max(float(norm(x - y, dtype=torch.float64)
+                     / norm(y - z, dtype=torch.float64))
+               for x, y, z in zip(a, b, p0))
+
+
+def optimizer_checks(bf, fl, torch, dev) -> dict:
+    """(c) ZeRO-1 and (d) the hierarchical optimizer against their world-1
+    references, each within ``TOL_ZERO1`` of the reference's own
+    run-to-run floor; the planted fault must land beyond it."""
+    p0 = [p.detach().clone() for p in headline_model(
+        bf, torch, dev, fl.flash_attention).parameters()]
+    runs = {}
+    for key, cls, plant in (
+            ("ref", bf.DistributedGradientAllreduceOptimizer, False),
+            ("ref again", bf.DistributedGradientAllreduceOptimizer, False),
+            ("zero1", bf.DistributedShardedAllreduceOptimizer, False),
+            ("zero1 planted", bf.DistributedShardedAllreduceOptimizer, True),
+            ("flagship", bf.DistributedNeighborAllreduceOptimizer, False),
+            ("hierarchical",
+             bf.DistributedHierarchicalNeighborAllreduceOptimizer, False)):
+        runs[key] = _check_steps(bf, fl, torch, dev, cls, plant)
+        torch.cuda.empty_cache()
+    diffs = {"floor": param_diff(runs["ref again"], runs["ref"], p0),
+             "zero1": param_diff(runs["zero1"], runs["ref"], p0),
+             "planted": param_diff(runs["zero1 planted"], runs["ref"], p0),
+             "hierarchical": param_diff(runs["hierarchical"],
+                                        runs["flagship"], p0)}
+    log(f"optimizer checks ({OPT_CHECK_STEPS} Adam steps, headline LM, "
+        f"max over tensors of |a-b|/|b-p0|): gradient allreduce twice "
+        f"(floor)={diffs['floor']:.3e} zero1 vs gradient allreduce="
+        f"{diffs['zero1']:.3e} hierarchical vs flagship="
+        f"{diffs['hierarchical']:.3e} planted (shard written back shifted "
+        f"by one)={diffs['planted']:.3e}; limit TOL_ZERO1={TOL_ZERO1}")
+    bad = {k: v for k, v in diffs.items()
+           if k != "planted" and not v <= TOL_ZERO1}
+    if bad:
+        raise RuntimeError(f"optimizers disagree beyond TOL_ZERO1="
+                           f"{TOL_ZERO1}: {bad}")
+    if diffs["planted"] <= TOL_ZERO1:
+        raise RuntimeError(f"the optimizer check missed the planted fault: "
+                           f"{diffs}")
+    return diffs
+
+
+def flat_collectives(torch, dev, numel: int) -> dict:
+    """(e) NCCL's reduce-scatter and all-gather of one f32 buffer of
+    ``numel`` elements at world 1, out of place and in place (the ZeRO-1
+    step's form), CUDA events; the copy bound reads and writes it once."""
+    import torch.distributed as dist
+
+    from bluefog_tpu_torch.ops.collectives import (_all_gather_flat,
+                                                   _reduce_scatter_flat)
+
+    flat = torch.ones(numel, device=dev)
+    out = torch.empty_like(flat)
+    res = {
+        "reduce_scatter": cuda_ms(lambda: _reduce_scatter_flat(
+            out, flat, op=dist.ReduceOp.SUM), 10),
+        "all_gather": cuda_ms(lambda: _all_gather_flat(out, flat), 10),
+        "reduce_scatter in place": cuda_ms(lambda: _reduce_scatter_flat(
+            flat, flat, op=dist.ReduceOp.SUM), 10),
+        "all_gather in place": cuda_ms(lambda: _all_gather_flat(flat, flat),
+                                       10),
+    }
+    bound = 2 * numel * 4 / PEAK_BYTES * 1e3
+    log(f"flat collectives ({numel} f32, {numel * 4 / 1e9:.3f} GB, world 1): "
+        + " ".join(f"{k}={v:.4f} ms" for k, v in res.items())
+        + f"; copy bound {bound:.4f} ms")
+    return dict(res, bound_ms=bound)
+
+
+def optimizers(bf, fl, torch) -> dict:
+    """The optimizers phase, (a)-(e), in one world of one over NCCL. Raises
+    when it leaves device memory allocated behind it."""
+    before = torch.cuda.memory_allocated()
+    bf.init()
+    try:
+        dev = torch.device("cuda", torch.cuda.current_device())
+        res = {"ops": ops_check(bf, torch, dev)}
+        torch.cuda.empty_cache()
+        res["zero1_train"] = zero1_train(bf, fl, torch, dev)
+        torch.cuda.empty_cache()
+        res["checks"] = optimizer_checks(bf, fl, torch, dev)
+        torch.cuda.empty_cache()
+        res["flat_collectives"] = flat_collectives(
+            torch, dev, res["zero1_train"]["params"])
+    finally:
+        bf.shutdown()
+    left = torch.cuda.memory_allocated() - before
+    if left > 2**20:
+        raise RuntimeError(f"the optimizers phase left {left} bytes "
+                           f"allocated on the card")
+    return res
 
 
 def _ce_errors(grads_full, loss_full, grads, loss) -> tuple:
@@ -951,6 +1202,8 @@ def main() -> int:
 
     run = train(bf, fl, torch)
     torch.cuda.empty_cache()
+    opts = optimizers(bf, fl, torch)
+    torch.cuda.empty_cache()
     ce = ce_check(bf, fl, torch, dev)
     torch.cuda.empty_cache()
     lm_bench_runs = lm_bench_phase(fl, torch, dev)
@@ -977,8 +1230,8 @@ def main() -> int:
     os.makedirs(os.path.dirname(OUT), exist_ok=True)
     with open(OUT, "w") as f:
         json.dump({"card": card, "kernels": kernels, "train": run,
-                   "ce": ce, "lm_bench": lm_bench_runs, "moe": moe,
-                   "vision": vision}, f, indent=1)
+                   "optimizers": opts, "ce": ce, "lm_bench": lm_bench_runs,
+                   "moe": moe, "vision": vision}, f, indent=1)
     log(f"wall: {time.perf_counter() - t_start:.1f} s after the card check")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

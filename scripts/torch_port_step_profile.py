@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Where a train step of the port spends its device time.
 
-    python3 scripts/torch_port_step_profile.py [--model lm|moe|resnet50]
-                                               [--chunked-ce]
+    python3 scripts/torch_port_step_profile.py
+        [--model lm|moe|resnet50|zero1] [--chunked-ce]
 
 ``lm`` (default) builds ``chip_smoke.py``'s main path
 (``chip_smoke.headline``: the headline-width flash ``TransformerLM`` under
@@ -11,7 +11,8 @@
 place of the full-logits loss), runs ``WARMUP`` steps, then traces
 ``STEPS`` steps. ``moe`` does the same for ``chip_smoke.py``'s MoE LM at
 the headline width (``MOE_EXPERTS`` experts, blocks 1 and 3 MoE, always
-``chunked_ce_loss``).
+``chunked_ce_loss``). ``zero1`` trains the headline LM under
+``DistributedShardedAllreduceOptimizer`` (ZeRO-1) around the same Adam.
 ``resnet50`` builds the benchmark's step (``bluefog_tpu_torch.bench.setup``:
 ResNet-50, batch 128 at 224x224, SGD 0.1/0.9, cuDNN autotuning on), runs
 ``bench.WARMUP`` steps, then traces 10 steps. Both first time the steps
@@ -28,8 +29,9 @@ intervals), the busy share (busy time over the window's wall time) and the
 device idle share between the first and last device event; then the
 device time grouped by kernel family, device events per step, the time of
 the optimizer's parameter combine alone (pack, weights, unpack, copy back;
-CUDA events), and the summed device time of the top 25 kernels. Needs one
-CUDA card.
+CUDA events) or, for ``zero1``, of each pass of its step alone (and of Adam
+over the model's tensors one by one, for comparison), and the summed
+device time of the top 25 kernels. Needs one CUDA card.
 """
 
 from __future__ import annotations
@@ -81,6 +83,48 @@ def _lm(chunked_ce: bool = False, **moe):
     _, opt, batch = chip_smoke.headline(bf, torch, dev, flash_attention,
                                         loss_fn=loss, **moe)
     return opt, itertools.repeat(batch), chip_smoke.WARMUP, chip_smoke.STEPS
+
+
+def _zero1():
+    bf.init()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    model = chip_smoke.headline_model(bf, torch, dev, flash_attention)
+    opt = bf.DistributedShardedAllreduceOptimizer(
+        torch.optim.Adam(model.parameters(), lr=1e-3), model,
+        bf.models.lm_loss)
+    return (opt, itertools.repeat(chip_smoke.headline_batch(torch, dev)),
+            chip_smoke.WARMUP, chip_smoke.STEPS)
+
+
+def _zero1_passes(opt) -> None:
+    """Each pass of the ZeRO-1 step alone (CUDA events, 10 launches), and
+    Adam over the model's parameter tensors (views of the same buffer)."""
+    import torch.distributed as dist
+
+    from bluefog_tpu_torch.ops.collectives import (_all_gather_flat,
+                                                   _reduce_scatter_flat)
+
+    flat_g = opt._flat_g
+    (shard,) = opt.base.param_groups[0]["params"]
+    other = torch.ones_like(flat_g)
+    per_tensor = torch.optim.Adam(opt.model.parameters(), lr=1e-3)
+    passes = {
+        "zero the gradient buffer": flat_g.zero_,
+        "one add over the gradient buffer (the backward's accumulation)":
+            lambda: flat_g.add_(other),
+        "reduce-scatter in place": lambda: _reduce_scatter_flat(
+            shard.grad, flat_g, op=dist.ReduceOp.SUM),
+        "divide the shard's gradient by n": lambda: shard.grad.div_(
+            bf.size()),
+        "Adam on the flat shard": opt.base.step,
+        "all-gather in place": lambda: _all_gather_flat(opt._flat_p,
+                                                        shard.detach()),
+        "Adam over the model's tensors (not in the step)": per_tensor.step,
+    }
+    print(f"zero1 flat buffer: {flat_g.numel()} elements of {flat_g.dtype}")
+    for name, fn in passes.items():
+        print(f"zero1 pass alone: {name}: "
+              f"{chip_smoke.cuda_ms(fn, 10):.3f} ms")
 
 
 def _resnet50():
@@ -143,6 +187,8 @@ def _union_us(events) -> float:
 def main(model: str, chunked_ce: bool = False) -> None:
     if model == "resnet50":
         opt, feed, warmup, steps = _resnet50()
+    elif model == "zero1":
+        opt, feed, warmup, steps = _zero1()
     elif model == "moe":
         opt, feed, warmup, steps = _lm(
             True, num_experts=chip_smoke.MOE_EXPERTS, moe_every=2)
@@ -185,16 +231,20 @@ def main(model: str, chunked_ce: bool = False) -> None:
           f"the traced window {busy_us / 1e6 / wall:.4f}; device idle share "
           f"between its first and last event {1 - busy_us / span_us:.4f}; "
           f"device events per step {len(events) / steps:.1f}")
-    ps = [p.detach() for p in opt._params]
-    plan = opt._plan()
-
-    def combine():
+    if model == "zero1":
         with torch.no_grad():
-            for p, v in zip(ps, opt._combine(ps, plan)):
-                p.copy_(v)
+            _zero1_passes(opt)
+    else:
+        ps = [p.detach() for p in opt._params]
+        plan = opt._plan()
 
-    print(f"combine alone ({sum(p.numel() for p in ps)} parameters): "
-          f"{chip_smoke.cuda_ms(combine, 10):.3f} ms")
+        def combine():
+            with torch.no_grad():
+                for p, v in zip(ps, opt._combine(ps, plan)):
+                    p.copy_(v)
+
+        print(f"combine alone ({sum(p.numel() for p in ps)} parameters): "
+              f"{chip_smoke.cuda_ms(combine, 10):.3f} ms")
     groups = {}
     for name, us in kernels.items():
         groups[_group(name)] = groups.get(_group(name), 0.0) + us
@@ -209,7 +259,7 @@ def main(model: str, chunked_ce: bool = False) -> None:
 
 if __name__ == "__main__":
     p = argparse.ArgumentParser(description=__doc__)
-    p.add_argument("--model", choices=("lm", "moe", "resnet50"),
+    p.add_argument("--model", choices=("lm", "moe", "resnet50", "zero1"),
                    default="lm")
     p.add_argument("--chunked-ce", action="store_true",
                    help="train the LM with chunked_ce_loss")

@@ -80,7 +80,9 @@ def _unflatten(flat: dict) -> dict:
     return tree
 
 
-def _slice(bf, torch, rank: int, world: int, inp) -> dict:
+def _flash_lm(bf, torch, inp):
+    """The small flash ``TransformerLM`` of ``inp``'s config and flax
+    weights (``p:<path>`` leaves)."""
     from bluefog_tpu_torch.parallel.flash import flash_attention
     from bluefog_tpu_torch.utils import params_from_jax
 
@@ -92,6 +94,11 @@ def _slice(bf, torch, rank: int, world: int, inp) -> dict:
         attn_fn=flash_attention, device="cpu")
     params = {k[len("p:"):]: v for k, v in inp.items() if k.startswith("p:")}
     model.load_state_dict(params_from_jax(_unflatten(params)))
+    return model
+
+
+def _slice(bf, torch, rank: int, world: int, inp) -> dict:
+    model = _flash_lm(bf, torch, inp)
     opt = bf.DistributedNeighborAllreduceOptimizer(
         torch.optim.Adam(model.parameters(), lr=1e-3), model,
         bf.models.lm_loss)
@@ -102,6 +109,100 @@ def _slice(bf, torch, rank: int, world: int, inp) -> dict:
     out = {f"sd:{k}": v.detach().numpy() for k, v in
            model.state_dict().items()}
     out["losses"] = np.asarray(losses)
+    return out
+
+
+def _optimizers(bf, torch, rank: int, world: int, inp) -> dict:
+    """ZeRO-1 and the hierarchical optimizer on the cases of
+    ``tests/test_optimizers.py``, both on the small flash LM, and
+    ``broadcast_optimizer_state``."""
+    from torch import nn
+
+    class Leaves(nn.Module):
+        def __init__(self, w, b):
+            super().__init__()
+            self.w = nn.Parameter(torch.as_tensor(w, dtype=torch.float32))
+            self.b = nn.Parameter(torch.as_tensor(b, dtype=torch.float32))
+
+    def multi_leaf_loss(model, t):
+        return 0.5 * ((model.w - t) ** 2).sum() + \
+            0.5 * ((model.b - 1.0) ** 2).sum()
+
+    def state_sizes(opt):
+        (shard,) = opt.base.param_groups[0]["params"]
+        return np.array([v.numel() for v in opt.base.state[shard].values()
+                         if v.dim() >= 1])
+
+    out, flags = {}, {}
+    # the two-leaf padding case (total 7, shard ceil(7 / n)) under ZeRO-1
+    # and under the gradient allreduce it must match
+    t = torch.full((4,), float(rank))
+    for key, cls in (("zero1_ref", bf.DistributedGradientAllreduceOptimizer),
+                     ("zero1", bf.DistributedShardedAllreduceOptimizer)):
+        model = Leaves(np.zeros(4), np.full(3, 2.0))
+        opt = cls(torch.optim.Adam(model.parameters(), lr=0.1), model,
+                  multi_leaf_loss)
+        out[f"{key}_losses"] = np.array([float(opt.step(t)["loss"])
+                                         for _ in range(5)])
+        out[f"{key}_w"], out[f"{key}_b"] = model.w, model.b
+    out["zero1_state_sizes"] = state_sizes(opt)
+    # total 13: the state holds ceil(13 / n) elements and the parameters
+    # stay replicated after a step
+    model = Leaves(np.zeros(10), np.zeros(3))
+    opt = bf.DistributedShardedAllreduceOptimizer(
+        torch.optim.Adam(model.parameters(), lr=0.1), model, multi_leaf_loss)
+    opt.step(torch.full((10,), float(rank)))
+    out["shard13_w"] = model.w
+    out["shard13_state_sizes"] = state_sizes(opt)
+    flags["zero1_local_steps"] = _raises(
+        ValueError, lambda: bf.DistributedShardedAllreduceOptimizer(
+            torch.optim.SGD(model.parameters(), lr=0.1), model,
+            multi_leaf_loss, num_steps_per_communication=2),
+        "num_steps_per_communication")
+
+    # hierarchical consensus: zero gradients, so one step is the combine
+    model = Leaves(inp["x0"][rank], np.zeros(1))
+    opt = bf.DistributedHierarchicalNeighborAllreduceOptimizer(
+        torch.optim.SGD(model.parameters(), lr=0.1), model,
+        lambda m, b: 0.0 * m.w.sum())
+    opt.step(None)
+    out["hier_consensus"] = model.w
+
+    # the small flash LM under both, 3 Adam steps from the flax weights
+    tokens = torch.from_numpy(inp["tokens"][rank]).long()
+    targets = torch.from_numpy(inp["targets"][rank]).long()
+    for key, cls in (("lm_zero1", bf.DistributedShardedAllreduceOptimizer),
+                     ("lm_hier",
+                      bf.DistributedHierarchicalNeighborAllreduceOptimizer)):
+        model = _flash_lm(bf, torch, inp)
+        opt = cls(torch.optim.Adam(model.parameters(), lr=1e-3,
+                                   eps=float(inp["adam_eps"])), model,
+                  bf.models.lm_loss)
+        out[f"{key}:losses"] = np.array(
+            [float(opt.step((tokens, targets))["loss"])
+             for _ in range(int(inp["steps"]))])
+        out.update({f"{key}:sd:{k}": v for k, v in
+                    model.state_dict().items()})
+
+    # broadcast_optimizer_state from rank 1; rank 3 has not stepped yet
+    p = nn.Parameter(torch.ones(3) * rank)
+    adam = torch.optim.Adam([p], lr=0.1)
+    if rank != 3:
+        p.grad = (rank + 1.0) * torch.arange(3.0)
+        adam.step()
+    bf.broadcast_optimizer_state(adam, root_rank=1)
+    state = adam.state[p]
+    out["bos_exp_avg"] = state["exp_avg"]
+    out["bos_exp_avg_sq"] = state["exp_avg_sq"]
+    out["bos_step"] = state["step"]
+    flags["bos_step_on_cpu"] = int(state["step"].device.type == "cpu")
+    flags["bos_empty_root"] = _raises(
+        ValueError, lambda: bf.broadcast_optimizer_state(
+            torch.optim.Adam([nn.Parameter(torch.ones(2))]), root_rank=1),
+        "empty on root")
+    out = {k: v.detach().float().numpy() if torch.is_tensor(v) else v
+           for k, v in out.items()}
+    out.update({f"flag:{k}": np.array(v) for k, v in flags.items()})
     return out
 
 
@@ -130,6 +231,148 @@ def _vision(bf, torch, rank: int, world: int, inp) -> dict:
     return out
 
 
+def _subgroup(bf, torch, rank: int, world: int, inp) -> dict:
+    """``spmd_combine`` over the subgroups {0, 2} and {1, 3}, whose group
+    ranks (0 and 1) are not their global ranks, with the shift and the
+    gather strategies."""
+    import torch.distributed as dist
+
+    from bluefog_tpu_torch.ops.plan import CombinePlan, spmd_combine
+
+    groups = [dist.new_group([0, 2]), dist.new_group([1, 3])]
+    plan = CombinePlan(inp["W"])
+    x = torch.from_numpy(inp["x"][rank])
+    out = {}
+    for key, gather in (("shift", False), ("gather", True)):
+        (out[key],) = spmd_combine(
+            plan.W if gather else plan.rows, [x], rank=rank // 2, n=2,
+            shifts=plan.shifts, use_gather=gather, group=groups[rank % 2])
+    return {k: v.numpy() for k, v in out.items()}
+
+
+def _raises(exc, fn, match: str) -> int:
+    """1 when ``fn()`` raises ``exc`` with ``match`` in its message."""
+    try:
+        fn()
+    except exc as e:
+        return int(match in str(e))
+    return 0
+
+
+def _collectives(bf, torch, rank: int, world: int, inp) -> dict:
+    """Every op of the collectives surface on this rank's inputs: the
+    blocking, nonblocking and in-place forms, and the error paths."""
+    import time
+
+    n = world
+    x = torch.from_numpy(inp["x"][rank])
+    xb = x.to(torch.bfloat16)
+    ragged = torch.from_numpy(inp[f"ragged_{rank}"])
+    pairs = {r: r ^ 1 for r in range(n)}
+    self_pairs = list(range(n))
+    self_pairs[1], self_pairs[2] = 2, 1
+    machine_w = dict(self_weight=0.75,
+                     neighbor_machine_weights={0: {1: 0.25}, 1: {0: 0.25}},
+                     send_neighbor_machines={0: [1], 1: [0]})
+    out = {
+        "layout": np.array([bf.local_size(), bf.local_rank(),
+                            bf.num_machines(), bf.machine_size(),
+                            bf.is_homogeneous()]),
+        "hier_local_avg": bf.allreduce(x, is_hierarchical_local=True),
+        "hier_local_sum": bf.allreduce(x, average=False,
+                                       is_hierarchical_local=True),
+        "hier_local_bf16": bf.allreduce(xb, is_hierarchical_local=True),
+        "allgather": bf.allgather(x),
+        "allgather_bf16": bf.allgather(xb),
+        "allgather_v": bf.allgather_v(ragged),
+        "allgather_v_empty": bf.allgather_v(torch.zeros((0, 3))),
+        "hier": bf.hierarchical_neighbor_allreduce(x),
+        "hier_weights": bf.hierarchical_neighbor_allreduce(x, **machine_w),
+        "hier_bf16": bf.hierarchical_neighbor_allreduce(xb),
+        "nag_expo2": bf.neighbor_allgather(x),
+        "pair": bf.pair_gossip(x, pairs),
+        "pair_w": bf.pair_gossip(x, pairs, 0.75, 0.25),
+        "pair_bf16": bf.pair_gossip(xb, pairs, 0.75, 0.25),
+        "pair_bf16_odd": bf.pair_gossip(xb, pairs, 0.3, 0.7),
+        "pair_self": bf.pair_gossip(x, self_pairs, 0.75, 0.25),
+    }
+    bf.set_topology(bf.topology_util.StarGraph(n))
+    out["nag_star"] = bf.neighbor_allgather(x)
+    h = bf.neighbor_allgather_nonblocking(x)
+    while not bf.poll(h):
+        time.sleep(0.001)
+    out["nb_nag_star"] = bf.synchronize(h)
+    bf.set_topology(bf.topology_util.ExponentialTwoGraph(n))
+
+    issued = {
+        "nb_allreduce": bf.allreduce_nonblocking(x),
+        "nb_hier_local": bf.allreduce_nonblocking(
+            x, is_hierarchical_local=True),
+        "nb_broadcast": bf.broadcast_nonblocking(x, 1),
+        "nb_allgather": bf.allgather_nonblocking(x),
+        "nb_allgather_v": bf.allgather_v_nonblocking(ragged),
+        "nb_pair": bf.pair_gossip_nonblocking(x, pairs, 0.75, 0.25),
+        "nb_nar": bf.neighbor_allreduce_nonblocking(x),
+        "nb_hier": bf.hierarchical_neighbor_allreduce_nonblocking(x),
+        "nb_nag_expo2": bf.neighbor_allgather_nonblocking(x),
+    }
+    for key, h in issued.items():
+        while not bf.poll(h):
+            time.sleep(0.001)
+        out[key] = bf.wait(h, timeout=60.0) if key == "nb_nar" else \
+            bf.synchronize(h)
+    flags = {"nb_second_synchronize": _raises(
+        ValueError, lambda: bf.synchronize(issued["nb_allreduce"]),
+        "already-synchronized")}
+
+    # the in-place forms write into their input and return it
+    for key, fn in (
+            ("inplace_allreduce", lambda y: bf.allreduce_(y)),
+            ("inplace_hier_local", lambda y: bf.allreduce_(
+                y, is_hierarchical_local=True)),
+            ("inplace_broadcast", lambda y: bf.broadcast_(y, 1)),
+            ("inplace_nb_allreduce",
+             lambda y: bf.synchronize(bf.allreduce_nonblocking_(y))),
+            ("inplace_nb_broadcast",
+             lambda y: bf.synchronize(bf.broadcast_nonblocking_(y, 1)))):
+        y = x.clone()
+        flags[f"{key}_is_input"] = int(fn(y) is y)
+        out[key] = y
+    pair = [x.clone(), x.clone() + 1]
+    flags["inplace_list_is_input"] = int(bf.allreduce_(pair) is pair)
+    out["inplace_list_0"], out["inplace_list_1"] = pair
+
+    # a deadline that passes keeps the handle for a retry: rank 0 issues
+    # an allreduce that cannot finish before the others join it
+    if rank == 0:
+        h = bf.allreduce_nonblocking(x)
+        flags["timeout_raises"] = _raises(
+            RuntimeError, lambda: bf.synchronize(h, timeout=0.05),
+            "deadline")
+        out["timeout_retry"] = bf.synchronize(h)
+    else:
+        time.sleep(0.5)
+        out["timeout_retry"] = bf.allreduce(x)
+        flags["timeout_raises"] = 1
+
+    bad = torch.zeros((1, 5 if rank == 3 else 2))
+    flags["allgather_v_mismatch"] = _raises(
+        ValueError, lambda: bf.allgather_v(bad), "trailing shape")
+    flags["allgather_mismatch"] = _raises(
+        ValueError, lambda: bf.allgather(torch.zeros((1 + rank % 2, 2))),
+        "equal shapes")
+    flags["pair_mismatch"] = _raises(
+        ValueError, lambda: bf.pair_gossip(x, {r: (r + 1) % n
+                                                for r in range(n)}), "mutual")
+    flags["nag_needs_dim"] = _raises(
+        ValueError, lambda: bf.neighbor_allgather(torch.tensor(1.0)),
+        ">= 1 dim")
+    out = {k: v.float().numpy() if torch.is_tensor(v) else v
+           for k, v in out.items()}
+    out.update({f"flag:{k}": np.array(v) for k, v in flags.items()})
+    return out
+
+
 def main() -> None:
     mode, rank, world, tmp_dir = sys.argv[1], int(sys.argv[2]), \
         int(sys.argv[3]), sys.argv[4]
@@ -138,11 +381,14 @@ def main() -> None:
     import bluefog_tpu_torch as bf
 
     torch.set_num_threads(1)
-    bf.init(device="cpu", init_method="file://" + os.path.join(
-        tmp_dir, "store"), rank=rank, world_size=world)
     inp = dict(np.load(os.path.join(tmp_dir, "inputs.npz")))
-    out = {"ops": _ops, "slice": _slice, "vision": _vision}[mode](
-        bf, torch, rank, world, inp)
+    kw = {"local_size": int(inp["local_size"])} if "local_size" in inp \
+        else {}
+    bf.init(device="cpu", init_method="file://" + os.path.join(
+        tmp_dir, "store"), rank=rank, world_size=world, **kw)
+    out = {"ops": _ops, "slice": _slice, "vision": _vision,
+           "subgroup": _subgroup, "collectives": _collectives,
+           "optimizers": _optimizers}[mode](bf, torch, rank, world, inp)
     bf.barrier()
     bf.shutdown()
     np.savez(os.path.join(tmp_dir, f"out_{rank}.npz"), **out)

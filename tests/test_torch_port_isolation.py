@@ -3,9 +3,11 @@
 A fresh interpreter imports every module of ``bluefog_tpu_torch`` and
 ``chip_smoke.py`` and must find neither JAX, flax, optax nor any module of
 the JAX package loaded. On this GPU-less machine the entry points raise
-unless ``device="cpu"`` is passed.
+unless ``device="cpu"`` is passed. The port's public names are names of
+the JAX package too: it adds no feature the JAX package lacks.
 """
 
+import json
 import os
 import subprocess
 import sys
@@ -13,6 +15,7 @@ import sys
 import pytest
 import torch
 
+import bluefog_tpu
 import bluefog_tpu_torch as bft
 from bluefog_tpu_torch import bench, lm_bench
 
@@ -41,6 +44,7 @@ def test_port_imports_no_jax():
 
 _ENTRIES = {
     "init": lambda: bft.init(),
+    "init(local_size=1)": lambda: bft.init(local_size=1),
     "TransformerLM": lambda: bft.models.TransformerLM(vocab_size=16),
     "MoETransformerLM": lambda: bft.models.MoETransformerLM(16, 4),
     "SwitchFFN": lambda: bft.parallel.SwitchFFN(8, 4, 16),
@@ -59,3 +63,35 @@ def test_port_entry_points_refuse_cpu_fallback(entry):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         _ENTRIES[entry]()
     assert not torch.distributed.is_initialized()
+
+
+# the names the hierarchical/ZeRO-1 slice ports (ROADMAP Queue 1, item 1)
+_SLICE_NAMES = [
+    "num_machines", "machine_size", "is_homogeneous",
+    "set_skip_negotiate_stage", "get_skip_negotiate_stage",
+    "mpi_threads_supported", "nccl_built", "poll", "synchronize", "wait",
+    "allreduce_", "allreduce_nonblocking", "allreduce_nonblocking_",
+    "broadcast_", "broadcast_nonblocking", "broadcast_nonblocking_",
+    "allgather", "allgather_nonblocking", "allgather_v",
+    "allgather_v_nonblocking", "pair_gossip", "pair_gossip_nonblocking",
+    "neighbor_allreduce_nonblocking", "hierarchical_neighbor_allreduce",
+    "hierarchical_neighbor_allreduce_nonblocking", "neighbor_allgather",
+    "neighbor_allgather_nonblocking",
+    "DistributedHierarchicalNeighborAllreduceOptimizer",
+    "DistributedShardedAllreduceOptimizer", "broadcast_optimizer_state",
+]
+
+
+def test_port_names_are_jax_names():
+    """Every public name of a freshly imported ``bluefog_tpu_torch`` but its
+    ``models``/``parallel``/``utils`` modules is a name of ``bluefog_tpu``,
+    and each name this slice ports is present."""
+    probe = ("import json, bluefog_tpu_torch as b; print(json.dumps(sorted("
+             "n for n in vars(b) if not n.startswith('_'))))")
+    res = subprocess.run([sys.executable, "-c", probe], cwd=_REPO,
+                         env=dict(os.environ, PYTHONPATH=_REPO),
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    names = set(json.loads(res.stdout)) - {"models", "parallel", "utils"}
+    assert sorted(names - set(dir(bluefog_tpu))) == []
+    assert sorted(set(_SLICE_NAMES) - names) == []
