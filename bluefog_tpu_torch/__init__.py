@@ -84,5 +84,6 @@ from .optimizers import (
 from .utils import (broadcast_parameters, allreduce_parameters,
                     broadcast_optimizer_state)
 
+from . import checkpoint
 from . import models
 from . import parallel

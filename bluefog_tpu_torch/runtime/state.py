@@ -66,6 +66,8 @@ class _State:
         # every rank); None without a homogeneous layout
         self.local_group = None
         self.machine_group = None
+        # the gloo group ``checkpoint`` coordinates over, made at first use
+        self.checkpoint_group = None
         self._plan_cache: dict = {}
 
     def check_initialized(self) -> None:
@@ -185,7 +187,7 @@ def shutdown() -> None:
         shutil.rmtree(st.store_dir, ignore_errors=True)
         st.store_dir = None
     st._plan_cache.clear()
-    st.local_group = st.machine_group = None
+    st.local_group = st.machine_group = st.checkpoint_group = None
     st.skip_negotiate = False
     st.topology = None
     st.initialized = False

@@ -26,7 +26,25 @@ Phases (each raises on failure; the script then exits non-zero):
    to 0 just before and read just after; each kernel must show ``LAYERS``
    launches per step. Before that, a small model checks flash logits and
    gradients against dense attention on the card.
-5. optimizers (world 1, NCCL): (a) the collectives surface on a
+5. context, at the main path's shape (bf16, causal, S=8192): (a) a
+   virtual ring of 4 ranks of 2048 tokens, the port's own ring step
+   functions in lock-step with Python lists rolled for the rotation,
+   against ``flash_attention`` over the whole sequence (output, dq, dk, dv
+   within ``TOL_RING``; 16 launches of each kernel; two planted faults
+   beyond the limit; each direction's ms summed over the virtual ranks
+   beside the full-sequence kernels'); (b) the headline LM with
+   ``ring_attention_shard(causal=True, use_flash=True)`` as its attention
+   at world 1 (NCCL) under plain Adam, 2 warm-up and 5 timed steps:
+   ms/step, tokens/s, peak memory, losses equal to the train phase's
+   (``TOL_RING_LOSS``), ``LAYERS`` launches of each kernel per step; (d)
+   ``checkpoint.save``, ``save_async`` + ``wait_pending`` and ``restore``
+   of that LM's Adam state in a temporary directory the phase removes:
+   bytes, seconds, the sidecar, and a restored run bit-identical to the
+   original after one more step each; (c) ``cp_loss_fn`` with the einsum
+   ring and with Ulysses on the headline model, two Adam steps each: the
+   first loss against dense ``lm_loss`` (``TOL_CP_LOSS``), ms/step and
+   peak memory (the dense f32 score blocks are 4 GiB each).
+6. optimizers (world 1, NCCL): (a) the collectives surface on a
    ``[4096, 2048]`` tensor in f32 and bf16 (``allgather``, ``allgather_v``,
    ``neighbor_allgather``, ``pair_gossip`` with itself at 0.75/0.25,
    ``hierarchical_neighbor_allreduce``, the hierarchical-local
@@ -45,25 +63,25 @@ Phases (each raises on failure; the script then exits non-zero):
    ``reduce_scatter`` and ``all_gather`` of the 335,562,752-element f32
    buffer (out of place and in place, as the step runs them), CUDA events,
    beside the copy bound.
-6. ce check: ``chunked_ce_loss`` against the full-logits ``lm_loss`` on the
+7. ce check: ``chunked_ce_loss`` against the full-logits ``lm_loss`` on the
    headline model in bf16, one batch: the loss and every gradient within
    ``TOL_CE_*``; one chunk's targets rolled by one position must land
    beyond a limit.
-7. lm_bench: ``python -m bluefog_tpu_torch.lm_bench``'s ``run`` at its
+8. lm_bench: ``python -m bluefog_tpu_torch.lm_bench``'s ``run`` at its
    defaults (the headline, plain Adam, 3 warm-up and 20 timed steps) in
    three forms: full logits, ``--chunked-ce``, ``--remat --chunked-ce``.
    Each prints its JSON line (ms/step, tokens/s, mfu against the H100's
    bf16 peak) and its peak memory; each kernel must launch ``LAYERS`` times
    a step (K1 twice that under remat), and the chunked forms must peak
    below the full-logits form.
-8. moe: (a) a small bf16 MoE LM, flash against dense attention (the
+9. moe: (a) a small bf16 MoE LM, flash against dense attention (the
    share of tokens routed apart, then logits and gradients over the tokens
    routed alike); (b) a SwitchFFN in f32 on the card against the CPU; (c)
    the MoE LM at the headline width (8 experts, blocks 1 and 3 MoE) under the
    decentralized optimizer with ``chunked_ce_loss``, 2 warm-up and 5 timed
    steps: ms/step, tokens/s, mfu, peak memory, falling losses, ``LAYERS``
    launches of each kernel per step.
-9. vision: ResNet-50 at full width (1000 classes, 224x224), the model of
+10. vision: ResNet-50 at full width (1000 classes, 224x224), the model of
    ``python -m bluefog_tpu_torch.bench``. A check of the bf16
    ``channels_last`` model against the same weights in f32 on the card
    (logits, every gradient, the BN buffers after one train-mode forward;
@@ -189,6 +207,33 @@ TOL_SWITCH = 1e-5
 OPS_SHAPE = (4096, 2048)
 OPT_CHECK_STEPS = 3
 TOL_ZERO1 = 0.0
+
+# the context phase, at the main path's shape (B=1, H=16, D=128, S=SEQ,
+# bf16, causal). (a) A virtual ring of RING_N ranks of SEQ/RING_N tokens:
+# the port's own step functions (``ring_forward_step``,
+# ``ring_backward_step``) in lock-step for every virtual rank, Python lists
+# rolled for the rotation, against ``flash_attention`` over the whole
+# sequence: each output and dq/dk/dv as max|ring - full| / max|full|. Both
+# sides run K1-K3 in bf16; the ring merges its blocks' partials in f32 and
+# rounds each block's P against that block's row max, the full pass
+# against its running one. Measured on an H100 (PERF.md): out 2.8e-4, dq
+# 3.3e-4, dk 2.0e-3, dv 2.7e-3; TOL_RING sits 2.2x above the largest. Each
+# of RING_FAULTS (the block's k_off taken as me*Sk; one step's merge
+# dropped on the last rank) must land beyond it: they read 1.18 and 2.4e-2.
+# (b) The headline LM with the flash ring as its attn_fn at world 1 under
+# plain Adam: its one merge per layer is exact, so each loss equals the
+# flagship's at the same step; measured 0, and TOL_RING_LOSS (relative)
+# allows about ten f32 ulps. (c) ``cp_loss_fn`` (einsum ring and Ulysses,
+# f32 softmax) at world 1: the loss before the first step against
+# ``lm_loss`` with dense f32 attention (``reference_attention``) on the
+# same weights, relative; measured 2.2e-6 (ring) and 8.8e-8 (Ulysses),
+# TOL_CP_LOSS 4.6x above. (d) The checkpoint: a restored run and the
+# original, one more step each, bit for bit.
+RING_N = 4
+RING_FAULTS = ("k_off", "drop_merge")
+TOL_RING = 6e-3
+TOL_RING_LOSS = 1e-6
+TOL_CP_LOSS = 1e-5
 
 KERNELS = {
     "flash_fwd": ("bluefog_tpu_torch/parallel/csrc/flash_fwd.cu",
@@ -750,6 +795,375 @@ def optimizers(bf, fl, torch) -> dict:
                            f"allocated on the card")
     return res
 
+def _roll(xs: list) -> list:
+    """One rotation of the virtual ring: rank i's item moves to rank i+1."""
+    return xs[-1:] + xs[:-1]
+
+
+def _shards(x, n: int) -> list:
+    return [t.contiguous() for t in x.chunk(n, dim=1)]
+
+
+def _k_off(r: int, t: int, n: int, sk: int, fault) -> int:
+    """Rank r's key offset at step t: block (r - t) % n, or the planted
+    ``k_off`` fault's r."""
+    return (r if fault == "k_off" else (r - t) % n) * sk
+
+
+def _vring_forward(qs, ks, vs, use_flash: bool, fault=None,
+                   check: bool = False, causal: bool = True) -> list:
+    """The virtual ring's forward over the ranks' shards: the port's
+    ``ring_forward_step`` for every rank in lock-step, the K/V lists rolled
+    for the rotation; returns each rank's ``(out, m, l)``. ``check`` raises
+    when a state leaves the finite numbers (a fully masked block, blk > me,
+    must leave it as it was)."""
+    import torch
+    from bluefog_tpu_torch.parallel import context as cx
+
+    n, sq, sk = len(qs), qs[0].shape[1], ks[0].shape[1]
+    states = [cx.ring_forward_init(x) for x in qs]
+    kc, vc = ks, vs
+    for t in range(n):
+        for r in range(n):
+            new = cx.ring_forward_step(qs[r], kc[r], vc[r], states[r],
+                                       r * sq, _k_off(r, t, n, sk, fault),
+                                       causal, use_flash)
+            if not (fault == "drop_merge" and r == n - 1 and t == 1):
+                states[r] = new
+            if check and not all(bool(torch.isfinite(x).all())
+                                 for x in states[r]):
+                raise RuntimeError(f"virtual ring: rank {r} step {t} "
+                                   f"(block {(r - t) % n}) not finite")
+        kc, vc = _roll(kc), _roll(vc)
+    return [cx.ring_forward_finish(st, qs[0].dtype) for st in states]
+
+
+def _vring_backward(qs, ks, vs, fin, gs, use_flash: bool, fault=None,
+                    causal: bool = True) -> list:
+    """The virtual ring's backward: ``ring_backward_step`` for every rank,
+    K/V and the dk/dv accumulators rolled each step (the last roll brings
+    dk/dv home); returns each rank's ``(dq, dk, dv, stats)``."""
+    from bluefog_tpu_torch.parallel import context as cx
+
+    n, sq, sk = len(qs), qs[0].shape[1], ks[0].shape[1]
+    grads = [cx.ring_backward_init(qs[r], ks[r], vs[r], *fin[r], gs[r])
+             for r in range(n)]
+    kc, vc = ks, vs
+    for t in range(n):
+        grads = [cx.ring_backward_step(qs[r], kc[r], vc[r], grads[r],
+                                       r * sq, _k_off(r, t, n, sk, fault),
+                                       causal, use_flash)
+                 for r in range(n)]
+        kc, vc = _roll(kc), _roll(vc)
+        dks, dvs = _roll([s[1] for s in grads]), _roll([s[2] for s in grads])
+        grads = [(s[0], dk, dv, s[3]) for s, dk, dv in zip(grads, dks, dvs)]
+    return grads
+
+
+def virtual_ring(q, k, v, g, n: int, use_flash: bool, fault=None,
+                 causal: bool = True) -> tuple:
+    """Ring attention over ``n`` virtual ranks in one process (the port's
+    step functions, lists rolled for the rotation). ``q, k, v, g`` are
+    whole sequences; returns the whole ``(out, dq, dk, dv)`` assembled from
+    the ranks' shards. ``fault`` plants one of ``RING_FAULTS``."""
+    import torch
+
+    qs, ks, vs, gs = (_shards(x, n) for x in (q, k, v, g))
+    fin = _vring_forward(qs, ks, vs, use_flash, fault, True, causal)
+    grads = _vring_backward(qs, ks, vs, fin, gs, use_flash, fault, causal)
+    return (torch.cat([f[0] for f in fin], 1),
+            *(torch.cat([s[i] for s in grads], 1).to(q.dtype)
+              for i in range(3)))
+
+
+def _ring_direction_ms(torch, q, k, v, g, n: int) -> dict:
+    """CUDA-event ms of the virtual ring's forward (n^2 K1 steps and their
+    merges) and backward (n^2 K2+K3 steps and their sums), each summed over
+    the virtual ranks; the same n^2 kernel calls alone; the full-sequence
+    K1 and K2+K3."""
+    from bluefog_tpu_torch.parallel import flash as fl
+
+    qs, ks, vs, gs = (_shards(x, n) for x in (q, k, v, g))
+    s = qs[0].shape[1]
+    fin = _vring_forward(qs, ks, vs, True)
+    stats = [(gs[r].float(), (gs[r].float() * fin[r][0].float()).sum(-1),
+              *fin[r][1:]) for r in range(n)]
+    blocks = [(r, (r - t) % n) for t in range(n) for r in range(n)]
+
+    def fwd_kernels():
+        for r, blk in blocks:
+            fl.flash_block(qs[r], ks[blk], vs[blk], r * s, blk * s,
+                           causal=True)
+
+    def bwd_kernels():
+        for r, blk in blocks:
+            fl.flash_block_bwd(qs[r], ks[blk], vs[blk], *stats[r], r * s,
+                               blk * s, causal=True)
+
+    o, m, l = fl.flash_block(q, k, v, 0, 0, causal=True)
+    out = (o / l[..., None]).to(q.dtype)
+    d_term = (g * out.float()).sum(-1)
+    return {"ring fwd": cuda_ms(lambda: _vring_forward(qs, ks, vs, True), 5),
+            "ring fwd K1 alone": cuda_ms(fwd_kernels, 5),
+            "full K1": cuda_ms(
+                lambda: fl.flash_block(q, k, v, 0, 0, causal=True), 5),
+            "ring bwd": cuda_ms(
+                lambda: _vring_backward(qs, ks, vs, fin, gs, True), 5),
+            "ring bwd K2+K3 alone": cuda_ms(bwd_kernels, 5),
+            "full K2+K3": cuda_ms(
+                lambda: fl.flash_block_bwd(q, k, v, g, d_term, m, l, 0, 0,
+                                           causal=True), 5)}
+
+
+def ring_check(fl, torch, dev, B, S, H, D) -> dict:
+    """(a) The virtual ring of ``RING_N`` against ``flash_attention`` over
+    the whole sequence: errors within ``TOL_RING``, ``RING_N``^2 launches
+    of each kernel, each planted fault beyond the limit, and the ms of
+    each direction beside the full-sequence kernels'."""
+    gen = torch.Generator(device=dev).manual_seed(31)
+    q, k, v = (torch.randn((B, S, H, D), generator=gen, device=dev)
+               .to(torch.bfloat16) for _ in range(3))
+    g = torch.randn((B, S, H, D), generator=gen, device=dev).to(
+        torch.bfloat16)
+    qq, kk, vv = (t.clone().requires_grad_(True) for t in (q, k, v))
+    full = fl.flash_attention(qq, kk, vv, causal=True)
+    full.backward(g)
+    ref = (full.detach(), qq.grad, kk.grad, vv.grad)
+    del qq, kk, vv, full
+    names = ("out", "dq", "dk", "dv")
+
+    def errors(run):
+        return {nm: nerr(a, b) for nm, a, b in zip(names, run, ref)}
+
+    torch.cuda.synchronize()
+    fl.reset_launch_counts()
+    errs = errors(virtual_ring(q, k, v, g.float(), RING_N, True))
+    torch.cuda.synchronize()
+    counts = dict(fl.launch_counts)
+    planted = {f: errors(virtual_ring(q, k, v, g.float(), RING_N, True, f))
+               for f in RING_FAULTS}
+    ms = _ring_direction_ms(torch, q, k, v, g.float(), RING_N)
+    log(f"ring check (virtual ring of {RING_N}, {S // RING_N} tokens each, "
+        f"vs flash_attention over S={S}): "
+        + " ".join(f"{n}={e:.3e}" for n, e in errs.items())
+        + f"; limit TOL_RING={TOL_RING}; launches {counts}")
+    for f, e in planted.items():
+        log(f"ring check, planted {f}: "
+            + " ".join(f"{n}={v:.3e}" for n, v in e.items()))
+    log("ring ms (CUDA events, summed over the virtual ranks): "
+        + " ".join(f"{n}={t:.4f}" for n, t in ms.items()))
+    want = RING_N * RING_N
+    if any(c != want for c in counts.values()):
+        raise RuntimeError(f"virtual ring launches {counts}, expected {want} "
+                           f"of each kernel")
+    bad = {n: e for n, e in errs.items() if not e <= TOL_RING}
+    if bad:
+        raise RuntimeError(f"the virtual ring disagrees with full-sequence "
+                           f"flash beyond TOL_RING={TOL_RING}: {bad}")
+    for f, e in planted.items():
+        if all(v <= TOL_RING for v in e.values()):
+            raise RuntimeError(f"the ring check missed the planted fault "
+                               f"{f}: {e}")
+    return {"errors": errs, "planted": planted, "launches": counts,
+            "ms": ms}
+
+
+def _plain_adam(model, loss_fn):
+    """Plain ``torch.optim.Adam`` (lr 1e-3) behind the wrappers'
+    ``step(batch) -> {"loss": ...}``."""
+    import types
+
+    import torch
+
+    adam = torch.optim.Adam(model.parameters(), lr=1e-3)
+
+    def step(batch):
+        adam.zero_grad(set_to_none=True)
+        loss = loss_fn(model, batch)
+        loss.backward()
+        adam.step()
+        return {"loss": loss.detach()}
+
+    return types.SimpleNamespace(step=step, base=adam, model=model)
+
+
+def ring_train(bf, fl, torch, dev, flagship: list):
+    """(b) The headline LM with ``ring_attention_shard(causal=True,
+    use_flash=True)`` as its attention at world 1, plain Adam: ms/step,
+    tokens/s, peak memory, losses against the flagship's, ``LAYERS``
+    launches of each kernel per step. Returns the results, the model and
+    its Adam."""
+    from functools import partial
+
+    from bluefog_tpu_torch.parallel import ring_attention_shard
+
+    attn = partial(ring_attention_shard, causal=True, use_flash=True)
+    model = headline_model(bf, torch, dev, attn)
+    opt = _plain_adam(model, bf.models.lm_loss)
+    run = _train_steps(fl, torch, opt, headline_batch(torch, dev))
+    dt = run["dt"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(run["losses"], flagship))
+    log(f"ring train (flash ring attn_fn, world 1, plain Adam): layers="
+        f"{LAYERS} seq={SEQ} ms/step={dt * 1e3:.3f} tokens/s="
+        f"{SEQ / dt:.1f} peak_mem_GiB={run['peak'] / 2**30:.3f}")
+    log("ring train losses: " + " ".join(f"{x:.5f}" for x in run["losses"])
+        + f"; largest relative difference from the flagship's {rel:.3e} "
+        f"(limit TOL_RING_LOSS={TOL_RING_LOSS})")
+    log(f"ring train launches: {run['counts']}")
+    _check_training("ring train", run, LAYERS)
+    if not rel <= TOL_RING_LOSS:
+        raise RuntimeError(f"the flash-ring LM's losses {run['losses']} "
+                           f"differ from the flagship's {flagship}")
+    res = {"counts": run["counts"], "ms_per_step": dt * 1e3,
+           "tokens_per_s": SEQ / dt, "peak_bytes": run["peak"],
+           "losses": run["losses"], "vs_flagship": rel}
+    return res, opt
+
+
+def cp_check(bf, torch, dev) -> dict:
+    """(c) ``cp_loss_fn`` (ring, then Ulysses) on the headline model at
+    world 1, two plain Adam steps each: the first loss against ``lm_loss``
+    with dense attention on the same weights, the losses, ms/step and peak
+    memory. Each einsum ring block and each Ulysses score tensor is a dense
+    f32 [1, 16, 8192, 8192]: 4 GiB."""
+    from functools import partial
+
+    from bluefog_tpu_torch.parallel import cp_loss_fn, reference_attention
+
+    batch = headline_batch(torch, dev)
+    model = headline_model(bf, torch, dev,
+                           partial(reference_attention, causal=True))
+    with torch.no_grad():
+        ref = float(bf.models.lm_loss(model, batch))
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    res = {"dense_loss": ref}
+    for kind in ("ring", "ulysses"):
+        model.load_state_dict(start)
+        opt = _plain_adam(model, cp_loss_fn(model, kind=kind))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        losses = [float(opt.step(batch)["loss"]) for _ in range(2)]
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) / 2
+        peak = torch.cuda.max_memory_allocated()
+        rel = abs(losses[0] - ref) / abs(ref)
+        log(f"cp {kind} (cp_loss_fn, world 1, headline model): losses "
+            + " ".join(f"{x:.6f}" for x in losses)
+            + f"; dense lm_loss {ref:.6f}, relative error {rel:.3e} (limit "
+            f"TOL_CP_LOSS={TOL_CP_LOSS}); ms/step={dt * 1e3:.1f} "
+            f"peak_mem_GiB={peak / 2**30:.3f}")
+        if not all(math.isfinite(x) for x in losses):
+            raise RuntimeError(f"cp {kind}: non-finite loss {losses}")
+        if not rel <= TOL_CP_LOSS:
+            raise RuntimeError(f"cp {kind}: loss {losses[0]} against dense "
+                               f"{ref}: {rel:.3e} > {TOL_CP_LOSS}")
+        if not losses[1] < losses[0]:
+            raise RuntimeError(f"cp {kind}: loss did not fall {losses}")
+        res[kind] = {"losses": losses, "rel_err": rel, "ms_per_step":
+                     dt * 1e3, "peak_bytes": peak}
+        del opt
+        torch.cuda.empty_cache()
+    return res
+
+
+def _dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(root, f))
+               for root, _, files in os.walk(path) for f in files)
+
+
+def checkpoint_check(bf, torch, dev, trained) -> dict:
+    """(d) Save the ring LM's Adam state (``save``, then ``save_async`` and
+    ``wait_pending``) into a temporary directory the phase removes, restore
+    each into a fresh model and Adam, and hold the restored state and one
+    more step of each run to the original's, bit for bit."""
+    import shutil
+    import tempfile
+    from functools import partial
+
+    from bluefog_tpu_torch import checkpoint as ck
+    from bluefog_tpu_torch.parallel import ring_attention_shard
+
+    attn = partial(ring_attention_shard, causal=True, use_flash=True)
+    batch = headline_batch(torch, dev)
+    tmp = tempfile.mkdtemp(prefix="bft_ckpt_")
+    try:
+        paths = {"save": os.path.join(tmp, "sync"),
+                 "save_async": os.path.join(tmp, "async")}
+        times = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ck.save(paths["save"], trained, step=WARMUP + STEPS)
+        times["save"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ck.save_async(paths["save_async"], trained, step=WARMUP + STEPS)
+        times["save_async returns"] = time.perf_counter() - t0
+        ck.wait_pending()
+        times["save_async + wait_pending"] = time.perf_counter() - t0
+        nbytes = {k: _dir_bytes(p) for k, p in paths.items()}
+        meta = ck.read_meta(paths["save"])
+
+        def state(opt):
+            out = [p.detach() for p in opt.model.parameters()]
+            for entry in opt.base.state.values():
+                out += [t for t in entry.values() if torch.is_tensor(t)]
+            return out
+
+        want = [t.clone() for t in state(trained)]
+        same = {}
+        for key in ("save_async", "save"):
+            # seed 0's initial weights: the restore must replace them
+            fresh = _plain_adam(headline_model(bf, torch, dev, attn),
+                                bf.models.lm_loss)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, step = ck.restore(paths[key], fresh)
+            torch.cuda.synchronize()
+            times[f"restore ({key})"] = time.perf_counter() - t0
+            got = state(fresh)
+            same[key] = step == WARMUP + STEPS and len(got) == len(want) \
+                and all(torch.equal(a, b) for a, b in zip(got, want))
+            if key == "save_async":
+                del fresh, got
+                torch.cuda.empty_cache()
+        trained.step(batch)
+        fresh.step(batch)
+        cont = all(torch.equal(a, b) for a, b in zip(state(fresh),
+                                                     state(trained)))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"checkpoint (ring LM, Adam, world 1): bytes {nbytes} sidecar {meta}")
+    log("checkpoint seconds: " + " ".join(f"{k}={v:.3f}"
+                                          for k, v in times.items()))
+    log(f"checkpoint restored bit-identical: {same}; one more step each, "
+        f"bit-identical: {cont}")
+    if not (all(same.values()) and cont):
+        raise RuntimeError(f"the checkpoint did not restore the state bit "
+                           f"for bit: restored {same}, continued {cont}")
+    if meta is None or meta.get("world") != 1 or \
+            meta.get("step") != WARMUP + STEPS:
+        raise RuntimeError(f"checkpoint sidecar {meta}")
+    return {"bytes": nbytes, "seconds": times, "meta": meta}
+
+
+def context(bf, fl, torch, flagship: list) -> dict:
+    """The context phase (a)-(d), (b)-(d) in one world of one over NCCL."""
+    dev = torch.device("cuda", 0)
+    res = {"ring_check": ring_check(fl, torch, dev, 1, SEQ, 16, 128)}
+    torch.cuda.empty_cache()
+    bf.init()
+    try:
+        dev = torch.device("cuda", torch.cuda.current_device())
+        res["ring_train"], trained = ring_train(bf, fl, torch, dev, flagship)
+        res["checkpoint"] = checkpoint_check(bf, torch, dev, trained)
+        del trained
+        torch.cuda.empty_cache()
+        res["cp"] = cp_check(bf, torch, dev)
+    finally:
+        bf.shutdown()
+    return res
+
+
 
 def _ce_errors(grads_full, loss_full, grads, loss) -> tuple:
     """The errors, and the name of the parameter with the largest."""
@@ -1202,6 +1616,8 @@ def main() -> int:
 
     run = train(bf, fl, torch)
     torch.cuda.empty_cache()
+    ctx = context(bf, fl, torch, run["losses"])
+    torch.cuda.empty_cache()
     opts = optimizers(bf, fl, torch)
     torch.cuda.empty_cache()
     ce = ce_check(bf, fl, torch, dev)
@@ -1226,11 +1642,17 @@ def main() -> int:
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "library_call": r["library_call"],
+            "launches_by_path": {
+                "train": run["counts"][name],
+                f"virtual ring of {RING_N}": ctx["ring_check"]["launches"][
+                    name],
+                "flash ring LM": ctx["ring_train"]["counts"][name]},
         })
     os.makedirs(os.path.dirname(OUT), exist_ok=True)
     with open(OUT, "w") as f:
         json.dump({"card": card, "kernels": kernels, "train": run,
-                   "optimizers": opts, "ce": ce, "lm_bench": lm_bench_runs,
+                   "context": ctx, "optimizers": opts, "ce": ce,
+                   "lm_bench": lm_bench_runs,
                    "moe": moe, "vision": vision}, f, indent=1)
     log(f"wall: {time.perf_counter() - t_start:.1f} s after the card check")
     log(json.dumps({"kernels": kernels}))

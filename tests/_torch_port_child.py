@@ -373,6 +373,157 @@ def _collectives(bf, torch, rank: int, world: int, inp) -> dict:
     return out
 
 
+def _shard(a, rank: int, world: int):
+    """Rank ``rank``'s slice of ``a`` along the sequence (dim 1)."""
+    s = a.shape[1] // world
+    return a[:, rank * s:(rank + 1) * s]
+
+
+def _context(bf, torch, rank: int, world: int, inp) -> dict:
+    """Ring (einsum and flash) and Ulysses attention on this rank's shards
+    of the global q, k, v, with the gradients of ``sum(out * g)``; the
+    cross-length and bf16 rings; the shape checks; ``cp_apply`` and
+    ``cp_loss_fn`` (loss and every parameter gradient) on the small LM of
+    ``inp``'s config and flax weights."""
+    P = bf.parallel
+    q, k, v, g = (torch.from_numpy(_shard(inp[x], rank, world))
+                  for x in "qkvg")
+    out, flags = {}, {}
+
+    def run(key, fn, causal):
+        qq, kk, vv = (t.clone().requires_grad_(True) for t in (q, k, v))
+        o = fn(qq, kk, vv, causal=causal)
+        o.backward(g)
+        out[key] = o
+        out[f"{key}_dq"], out[f"{key}_dk"], out[f"{key}_dv"] = \
+            qq.grad, kk.grad, vv.grad
+
+    for causal in (0, 1):
+        for kind, flash in (("einsum", False), ("flash", True)):
+            run(f"ring_{kind}_{causal}",
+                lambda *a, **kw: P.ring_attention(*a, use_flash=flash, **kw),
+                bool(causal))
+        run(f"ulysses_{causal}", P.ulysses_attention, bool(causal))
+    qx, kx, vx = (torch.from_numpy(_shard(inp[f"{x}x"], rank, world))
+                  for x in "qkv")
+    qb, kb, vb = (t.to(torch.bfloat16) for t in (q, k, v))
+    for kind, flash in (("einsum", False), ("flash", True)):
+        out[f"cross_{kind}"] = P.ring_attention(qx, kx, vx, use_flash=flash)
+        bf16 = P.ring_attention(qb, kb, vb, causal=True, use_flash=flash)
+        flags[f"bf16_{kind}_dtype"] = int(bf16.dtype == torch.bfloat16)
+        out[f"bf16_{kind}"] = bf16
+    # rank 3 holds one token fewer: every rank must raise, none hang
+    bad = q[:, :-1] if rank == 3 else q
+    flags["bad_seq_ring"] = _raises(
+        ValueError, lambda: P.ring_attention(bad, bad, bad), "must divide")
+    flags["bad_seq_ulysses"] = _raises(
+        ValueError, lambda: P.ulysses_attention(bad, bad, bad), "must divide")
+    six = q[:, :, :6]
+    flags["bad_heads_ulysses"] = _raises(
+        ValueError, lambda: P.ulysses_attention(six, six, six), "heads")
+
+    model = _flash_lm(bf, torch, inp)
+    toks = torch.from_numpy(_shard(inp["tokens"], rank, world)).long()
+    tgts = torch.from_numpy(_shard(inp["targets"], rank, world)).long()
+    for kind in ("ring", "ulysses"):
+        with torch.no_grad():
+            out[f"cp_apply_{kind}"] = P.cp_apply(model, toks, kind=kind)
+        model.zero_grad(set_to_none=True)
+        loss = P.cp_loss_fn(model, kind=kind)(model, (toks, tgts))
+        loss.backward()
+        out[f"cp_loss_{kind}"] = loss
+        out.update({f"cp_grad_{kind}:{name}": p.grad
+                    for name, p in model.named_parameters()})
+    out = {k: v.detach().float().numpy() for k, v in out.items()}
+    out.update({f"flag:{k}": np.array(v) for k, v in flags.items()})
+    return out
+
+
+def _checkpoint(bf, torch, rank: int, world: int, inp) -> dict:
+    """Save and restore at world ``world`` into the run directory: the
+    decentralized optimizer around SGD with momentum (each rank pulled to
+    its own target, so every rank's state differs), ``save_async`` with
+    the parameters changed right after it, ZeRO-1 around Adam (each rank's
+    shard state differs), and a bare DCP save of the same per-rank
+    parameters under one key (the trap the rank keys avoid)."""
+    import torch.distributed.checkpoint as dcp
+    from torch import nn
+
+    ck = bf.checkpoint
+    here = os.getcwd()
+
+    class Leaves(nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.w = nn.Parameter(torch.zeros(4))
+            self.b = nn.Parameter(torch.full((3,), 2.0))
+
+    def loss_fn(model, t):
+        return 0.5 * ((model.w - t) ** 2).sum() + \
+            0.5 * ((model.b - t[:3]) ** 2).sum()
+
+    target = torch.from_numpy(inp["targets"][rank])
+
+    def sgd():
+        model = Leaves()
+        return bf.DistributedNeighborAllreduceOptimizer(
+            torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9), model,
+            loss_fn)
+
+    def zero1():
+        model = Leaves()
+        return bf.DistributedShardedAllreduceOptimizer(
+            torch.optim.Adam(model.parameters(), lr=0.1), model, loss_fn)
+
+    def state(opt):
+        got = {f"p_{n}": p.detach().clone()
+               for n, p in opt.model.named_parameters()}
+        for i, entry in opt.base.state_dict()["state"].items():
+            got.update({f"s{i}_{n}": t.clone() for n, t in entry.items()
+                        if torch.is_tensor(t)})
+        return got
+
+    out = {}
+    for key, make in (("sgd", sgd), ("zero1", zero1)):
+        opt = make()
+        for _ in range(3):
+            opt.step(target)
+        ck.save(os.path.join(here, key), opt, step=3)
+        out.update({f"{key}:orig:{n}": t for n, t in state(opt).items()})
+        rest, step = ck.restore(os.path.join(here, key), make())
+        out[f"{key}:step"] = torch.tensor(step)
+        out.update({f"{key}:rest:{n}": t for n, t in state(rest).items()})
+        opt.step(target)
+        rest.step(target)
+        out.update({f"{key}:cont_orig:{n}": t for n, t in state(opt).items()})
+        out.update({f"{key}:cont_rest:{n}": t
+                    for n, t in state(rest).items()})
+
+    # async: the state at the call is what lands, though the step after it
+    # changes the parameters and the momentum at once
+    opt = sgd()
+    opt.step(target)
+    ck.save_async(os.path.join(here, "a1"), opt, step=5)
+    out.update({f"a1:want:{n}": t for n, t in state(opt).items()})
+    opt.step(target)
+    ck.save_async(os.path.join(here, "a2"), opt, step=6)
+    out.update({f"a2:want:{n}": t for n, t in state(opt).items()})
+    opt.step(target)
+    ck.wait_pending()
+    for key in ("a1", "a2"):
+        rest, step = ck.restore(os.path.join(here, key), sgd())
+        out[f"{key}:step"] = torch.tensor(step)
+        out.update({f"{key}:got:{n}": t for n, t in state(rest).items()})
+
+    # the trap: one key for every rank's (different) parameters
+    w = torch.full((4,), float(rank))
+    dcp.save({"w": w}, checkpoint_id=os.path.join(here, "naive"))
+    back = {"w": torch.zeros(4)}
+    dcp.load(back, checkpoint_id=os.path.join(here, "naive"))
+    out["naive_w"] = back["w"]
+    return {k: v.detach().float().numpy() for k, v in out.items()}
+
+
 def main() -> None:
     mode, rank, world, tmp_dir = sys.argv[1], int(sys.argv[2]), \
         int(sys.argv[3]), sys.argv[4]
@@ -388,7 +539,8 @@ def main() -> None:
         tmp_dir, "store"), rank=rank, world_size=world, **kw)
     out = {"ops": _ops, "slice": _slice, "vision": _vision,
            "subgroup": _subgroup, "collectives": _collectives,
-           "optimizers": _optimizers}[mode](bf, torch, rank, world, inp)
+           "optimizers": _optimizers, "context": _context,
+           "checkpoint": _checkpoint}[mode](bf, torch, rank, world, inp)
     bf.barrier()
     bf.shutdown()
     np.savez(os.path.join(tmp_dir, f"out_{rank}.npz"), **out)

@@ -16,8 +16,10 @@ import pytest
 import torch
 
 import bluefog_tpu
+import bluefog_tpu.parallel
 import bluefog_tpu_torch as bft
 from bluefog_tpu_torch import bench, lm_bench
+from bluefog_tpu_torch.examples import long_context_lm
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -53,6 +55,11 @@ _ENTRIES = {
     "VGG16": lambda: bft.models.VGG16(),
     "bench.setup": lambda: bench.setup(),
     "prefetch_to_device": lambda: bft.utils.prefetch_to_device(iter([])),
+    "long_context_lm.main": lambda: long_context_lm.main(["--steps", "1"]),
+    "long_context_lm.main --attention ulysses": lambda: long_context_lm.main(
+        ["--steps", "1", "--attention", "ulysses"]),
+    "long_context_lm.main --attention flash": lambda: long_context_lm.main(
+        ["--steps", "1", "--attention", "flash"]),
 }
 
 
@@ -79,7 +86,14 @@ _SLICE_NAMES = [
     "neighbor_allgather_nonblocking",
     "DistributedHierarchicalNeighborAllreduceOptimizer",
     "DistributedShardedAllreduceOptimizer", "broadcast_optimizer_state",
+    # the context-parallel and checkpoint slice (ROADMAP Queue 1, items 2-3)
+    "checkpoint",
 ]
+_PARALLEL_SLICE_NAMES = ["ring_attention", "ring_attention_shard",
+                         "ulysses_attention", "ulysses_attention_shard",
+                         "cp_apply", "cp_loss_fn"]
+_CHECKPOINT_NAMES = ["save", "save_async", "wait_pending", "restore",
+                     "read_meta", "latest_path"]
 
 
 def test_port_names_are_jax_names():
@@ -95,3 +109,43 @@ def test_port_names_are_jax_names():
     names = set(json.loads(res.stdout)) - {"models", "parallel", "utils"}
     assert sorted(names - set(dir(bluefog_tpu))) == []
     assert sorted(set(_SLICE_NAMES) - names) == []
+
+
+def test_port_parallel_and_checkpoint_names_are_jax_names():
+    """The context-parallel names of ``bluefog_tpu_torch.parallel`` and the
+    checkpoint functions are present under the JAX package's names."""
+    from bluefog_tpu import checkpoint as jax_ck
+
+    for name in _PARALLEL_SLICE_NAMES:
+        assert name in bft.parallel.__all__ and \
+            name in bluefog_tpu.parallel.__all__, name
+    for name in _CHECKPOINT_NAMES:
+        assert callable(getattr(bft.checkpoint, name)), name
+        assert callable(getattr(jax_ck, name)), name
+
+
+# the context-parallel and checkpoint entry points take the caller's
+# tensors, modules and optimizer: they have no device of their own, and
+# before ``init`` (whose default is the card) they refuse to run at all
+_NEEDS_INIT = {
+    "ring_attention": lambda q: bft.parallel.ring_attention(q, q, q),
+    "ring_attention_shard": lambda q: bft.parallel.ring_attention_shard(
+        q, q, q, use_flash=True),
+    "ulysses_attention": lambda q: bft.parallel.ulysses_attention(q, q, q),
+    "ulysses_attention_shard": lambda q: bft.parallel.ulysses_attention_shard(
+        q, q, q),
+    "cp_apply": lambda q: bft.parallel.cp_apply(
+        bft.models.TransformerLM(vocab_size=16, device="cpu"),
+        torch.zeros((1, 8), dtype=torch.long)),
+    "cp_loss_fn": lambda q: bft.parallel.cp_loss_fn(
+        bft.models.TransformerLM(vocab_size=16, device="cpu")),
+    "checkpoint.restore": lambda q: bft.checkpoint.restore(
+        "no_such_checkpoint", None),
+}
+
+
+@pytest.mark.parametrize("entry", list(_NEEDS_INIT))
+def test_port_cp_and_checkpoint_need_init(entry):
+    with pytest.raises(RuntimeError, match="bf.init"):
+        _NEEDS_INIT[entry](torch.zeros((1, 8, 4, 8)))
+    assert not torch.distributed.is_initialized()
