@@ -19,9 +19,10 @@ Numerics follow flax, including its cast points:
   * RoPE is half-split (not interleaved) and computed in f32;
   * logits are cast to f32.
 
-The Switch-MoE block runs in the dense single-device mode
-(``parallel.expert.SwitchFFN``); the expert-parallel mode (``expert_axis``
-set) is a later slice and raises.
+The Switch-MoE block (``parallel.expert.SwitchFFN``) runs in the dense
+single-device mode, or with ``expert_axis`` set in the expert-parallel mode:
+one expert per rank of ``group``, two all-to-all hops per MoE layer
+(``parallel.ep_lm_loss_fn``).
 """
 
 from __future__ import annotations
@@ -140,14 +141,19 @@ class Block(_AttentionBlock):
 
 class MoEBlock(_AttentionBlock):
     """Transformer block whose FFN is a top-1 Switch mixture of experts
-    (``SwitchFFN`` under the name ``moe``); attention as in ``Block``."""
+    (``SwitchFFN`` under the name ``moe``); attention as in ``Block``. With
+    ``expert_axis`` set every rank of ``group`` builds and runs the block
+    together (one expert per rank, ``ep_lm_loss_fn``); with ``None`` it is
+    the dense oracle that runs anywhere."""
 
     def __init__(self, d_model: int, num_heads: int, d_ff: int,
                  num_experts: int, dtype: torch.dtype, attn_fn: Callable,
-                 expert_axis: Optional[str] = None, device=None) -> None:
+                 expert_axis: Optional[str] = None,
+                 capacity_factor: float = 2.0, device=None,
+                 group=None) -> None:
         super().__init__(d_model, num_heads, dtype, attn_fn, device)
         self.moe = SwitchFFN(d_model, num_experts, d_ff, dtype, expert_axis,
-                             device=device)
+                             capacity_factor, group=group, device=device)
 
     def ffn(self, h: torch.Tensor) -> torch.Tensor:
         return self.moe(h)
@@ -157,14 +163,17 @@ class TransformerLM(nn.Module):
     """Causal LM. ``attn_fn(q, k, v) -> out`` defaults to dense attention.
 
     ``num_experts > 0`` turns block i into an ``MoEBlock`` (Switch MoE FFN)
-    when ``(i + 1) % moe_every == 0``. ``expert_axis`` (the expert-parallel
-    mode) is not ported yet and raises; ``capacity_factor`` belongs to that
-    mode, and the dense one takes it for the JAX signature and ignores it.
+    when ``(i + 1) % moe_every == 0``. ``expert_axis`` selects the
+    expert-parallel mode over ``group`` (default: the runtime's world), with
+    ``capacity_factor`` bounding each expert's buffer; the dense mode takes
+    ``capacity_factor`` for the JAX signature and ignores it.
 
     Weights are random, drawn on ``device`` from ``seed`` (normal with std
     1/sqrt(fan_in) for dense layers, the embedding and the experts, ones
-    for norms), or loaded with ``load_state_dict`` (e.g. from
-    ``params_from_jax``).
+    for norms; the expert-parallel model keeps its rank's experts of its
+    dense twin's draw), or loaded with ``load_state_dict`` (e.g. from
+    ``params_from_jax``). ``config`` holds the arguments but ``device``
+    and ``seed``.
     """
 
     def __init__(self, vocab_size: int, num_layers: int = 2,
@@ -172,19 +181,27 @@ class TransformerLM(nn.Module):
                  dtype: torch.dtype = torch.float32,
                  attn_fn: Optional[Callable] = None, num_experts: int = 0,
                  moe_every: int = 2, expert_axis: Optional[str] = None,
-                 capacity_factor: float = 2.0, *, device=None,
+                 capacity_factor: float = 2.0, *, group=None, device=None,
                  seed: int = 0) -> None:
         super().__init__()
         dev = resolve_device(device)
+        self.config = dict(
+            vocab_size=vocab_size, num_layers=num_layers,
+            num_heads=num_heads, d_model=d_model, d_ff=d_ff, dtype=dtype,
+            attn_fn=attn_fn, num_experts=num_experts, moe_every=moe_every,
+            expert_axis=expert_axis, capacity_factor=capacity_factor,
+            group=group)
         self.vocab_size = vocab_size
         self.num_layers = num_layers
         self.dtype = dtype
+        self.expert_axis = expert_axis
         attn = attn_fn or partial(reference_attention, causal=True)
         self.embed = Embed(vocab_size, d_model, dtype, dev)
         for i in range(num_layers):
             if num_experts and (i + 1) % moe_every == 0:
                 blk = MoEBlock(d_model, num_heads, d_ff, num_experts, dtype,
-                               attn, expert_axis, dev)
+                               attn, expert_axis, capacity_factor, dev,
+                               group)
             else:
                 blk = Block(d_model, num_heads, d_ff, dtype, attn, dev)
             setattr(self, f"block_{i}", blk)

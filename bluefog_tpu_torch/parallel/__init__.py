@@ -1,7 +1,8 @@
 """The parallel layer: attention (the dense oracle, flash attention as
 hand-written CUDA kernels with plain PyTorch twins, and ring and Ulysses
 context parallelism over the ranks), context-parallel LM execution, the
-chunked LM loss and the Switch mixture of experts (dense mode)."""
+chunked LM loss and the Switch mixture of experts (dense, and expert
+parallel over the ranks)."""
 
 from .context import (
     reference_attention,
@@ -10,7 +11,17 @@ from .context import (
     ulysses_attention,
     ulysses_attention_shard,
 )
-from .expert import SwitchFFN, load_balance_loss
+from .expert import (
+    SwitchFFN,
+    ep_apply,
+    ep_lm_apply,
+    ep_lm_init,
+    ep_lm_loss_fn,
+    ep_place_params,
+    load_balance_loss,
+    moe_param_specs,
+    switch_dispatch,
+)
 from .flash import (
     flash_attention,
     flash_block,
@@ -36,4 +47,11 @@ __all__ = [
     "chunked_ce_loss",
     "SwitchFFN",
     "load_balance_loss",
+    "switch_dispatch",
+    "ep_apply",
+    "ep_place_params",
+    "moe_param_specs",
+    "ep_lm_init",
+    "ep_lm_apply",
+    "ep_lm_loss_fn",
 ]

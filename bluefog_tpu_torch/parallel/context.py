@@ -20,7 +20,7 @@ sequence positions ``[me*S/n, (me+1)*S/n)``.
   * Ulysses: an all-to-all re-shards sequence -> heads, dense attention
     (``reference_attention``) runs over the full sequence on H/n heads, and
     the inverse all-to-all re-shards back; the backward is the two
-    all-to-alls in reverse.
+    all-to-alls in reverse (``_exchange._Exchange``).
 
 At n = 1 every rotation and all-to-all is the identity and issues no
 transfer. CPU tensors take the kernels' plain versions (no ``interpret``
@@ -31,12 +31,14 @@ mesh the port does not have.
 from __future__ import annotations
 
 import math
+from functools import partial
 from typing import List, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 
 from ..ops.plan import _global_rank
+from ._exchange import _all_to_all, _Exchange
 from .flash import _allowed, flash_block, flash_block_bwd
 
 _NEG = -1e30
@@ -286,15 +288,6 @@ def ring_attention_shard(q, k, v, *, causal: bool = False,
 # Ulysses
 # ---------------------------------------------------------------------------
 
-def _all_to_all(x: torch.Tensor, group) -> torch.Tensor:
-    """Chunk j of dim 0 to rank j; returns the chunks received, in rank
-    order."""
-    x = x.contiguous()
-    out = torch.empty_like(x)
-    dist.all_to_all_single(out, x, group=group)
-    return out
-
-
 def _seq_to_heads(x, n: int, group):
     """``[B, S/n, H, D]`` shards -> ``[B, S, H/n, D]``: rank j keeps head
     group j of every rank's shard, in rank order along the sequence."""
@@ -312,30 +305,17 @@ def _heads_to_seq(x, n: int, group):
     return y.permute(1, 2, 0, 3, 4).reshape(B, S // n, n * Hn, D)
 
 
-class _Reshard(torch.autograd.Function):
-    """One Ulysses all-to-all; its backward is the inverse all-to-all."""
-
-    @staticmethod
-    def forward(ctx, x, to_heads, n, group):
-        ctx.args = (to_heads, n, group)
-        return (_seq_to_heads if to_heads else _heads_to_seq)(x, n, group)
-
-    @staticmethod
-    def backward(ctx, g):
-        to_heads, n, group = ctx.args
-        inverse = _heads_to_seq if to_heads else _seq_to_heads
-        return inverse(g, n, group), None, None, None
-
-
 def ulysses_attention_shard(q, k, v, *, causal: bool = False, group=None):
     """Ulysses attention over this rank's shards ``[B, S/n, H, D]``;
     returns this rank's output shard. Needs ``H % n == 0``."""
     _, n = _ring_group(group)
     if n == 1:
         return reference_attention(q, k, v, causal=causal)
-    q, k, v = (_Reshard.apply(x, True, n, group) for x in (q, k, v))
+    to_heads = partial(_seq_to_heads, n=n, group=group)
+    to_seq = partial(_heads_to_seq, n=n, group=group)
+    q, k, v = (_Exchange.apply(x, to_heads, to_seq) for x in (q, k, v))
     out = reference_attention(q, k, v, causal=causal)
-    return _Reshard.apply(out, False, n, group)
+    return _Exchange.apply(out, to_seq, to_heads)
 
 
 # ---------------------------------------------------------------------------

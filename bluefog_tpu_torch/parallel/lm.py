@@ -27,6 +27,7 @@ import torch.nn.functional as F
 from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint
 
+from ._exchange import _SumGrads
 from .context import (_check_shards, _ring_group, ring_attention_shard,
                       ulysses_attention_shard)
 
@@ -125,27 +126,6 @@ def cp_apply(model, tokens: torch.Tensor, group=None,
     _check_cp(model, tokens, kind, group)
     with _cp_model(model, kind, group):
         return model(tokens, _positions(tokens, group))
-
-
-class _SumGrads(torch.autograd.Function):
-    """The identity on the parameters whose backward sums their gradients
-    over the ring in one fused all-reduce: JAX's transpose of a replicated
-    (``P()``) ``shard_map`` input. It runs once, after every other node of
-    the backward, in the same place on every rank."""
-
-    @staticmethod
-    def forward(ctx, group, n, *params):
-        ctx.group, ctx.n = group, n
-        return tuple(p.view_as(p) for p in params)
-
-    @staticmethod
-    def backward(ctx, *grads):
-        if ctx.n > 1:
-            flat = torch.cat([g.reshape(-1) for g in grads])
-            dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=ctx.group)
-            grads = [f.view_as(g) for f, g in
-                     zip(flat.split([g.numel() for g in grads]), grads)]
-        return (None, None, *grads)
 
 
 def cp_loss_fn(model, group=None, kind: str = "ring"):

@@ -20,14 +20,20 @@ port's model of the same name (``TransformerLM`` dense or MoE, ``SwitchFFN``,
   * ``batch_stats`` ``<norm>/mean`` and ``<norm>/var`` -> the buffers.
 
 Any other leaf raises, so a renamed layer cannot slip through unmapped.
+With ``expert_rank=r`` the tree's full ``[E, ...]`` experts go to an
+expert-parallel model (``expert_axis`` set) on rank r of its group: each
+expert-local leaf (``parallel.moe_param_specs``) keeps expert r alone, as
+JAX's ``ep_lm_init`` followed by ``moe_param_specs`` shards them.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
+
+from ..parallel.expert import _slice_experts
 
 
 def _flatten(tree: Mapping, prefix=()) -> Dict[tuple, np.ndarray]:
@@ -54,9 +60,11 @@ def _param(mods, leaf: str, arr: np.ndarray):
     return None, arr
 
 
-def params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
+def params_from_jax(tree: Mapping, expert_rank: Optional[int] = None
+                    ) -> Dict[str, torch.Tensor]:
     """flax variables (nested dicts of arrays) -> a ``state_dict`` of f32
-    CPU tensors for the port's model of the same architecture."""
+    CPU tensors for the port's model of the same architecture (with
+    ``expert_rank``, its expert-parallel form on that rank)."""
     collections = {"params": tree}
     if "params" in tree and set(tree) <= {"params", "batch_stats"}:
         collections = dict(tree)
@@ -73,4 +81,4 @@ def params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
             if name is None:
                 raise KeyError(f"unmapped flax {coll} leaf {'/'.join(path)}")
             sd[name] = torch.from_numpy(np.array(arr, np.float32, order="C"))
-    return sd
+    return sd if expert_rank is None else _slice_experts(sd, expert_rank)

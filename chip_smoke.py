@@ -81,7 +81,25 @@ Phases (each raises on failure; the script then exits non-zero):
    decentralized optimizer with ``chunked_ce_loss``, 2 warm-up and 5 timed
    steps: ms/step, tokens/s, mfu, peak memory, falling losses, ``LAYERS``
    launches of each kernel per step.
-10. vision: ResNet-50 at full width (1000 classes, 224x224), the model of
+10. experts: (a) a virtual expert-parallel group of 8 ranks of 1024 tokens
+   at the headline MoE width (d 2048, d_ff 8192, E 8, bf16): the package's
+   local steps (``switch_send``, ``expert_ffn``, ``switch_combine``) for
+   every virtual rank, the lists transposed for each all-to-all, against
+   the dense ``SwitchFFN`` oracle: outputs and the gradients of x, gate, up
+   and down at capacity factor 8 within ``TOL_EP``; at 2.0 the kept tokens
+   within it, the dropped ones exactly 0 and their count the routing's; a
+   planted fault beyond it; each direction's ms summed over the virtual
+   ranks beside the oracle's. (b) The expert-parallel MoE LM at the
+   headline width, world 1 (E=1, blocks 1 and 3 MoE), ``ep_lm_loss_fn``
+   with flash attention under plain Adam, 2 warm-up and 5 timed steps:
+   the first loss against the dense E=1 model's (``TOL_EP_LOSS``),
+   ms/step, tokens/s, peak memory, ``LAYERS`` launches of each kernel per
+   step. (c) The examples at world 1: ``benchmark.py`` at its defaults,
+   ``resnet.py`` with a checkpoint and a resume, ``moe.py --experts 1``,
+   ``mnist.py`` (one epoch), ``average_consensus.py``, ``optimization.py``
+   for each method, and ``resnet_from_torch`` on a ResNet-50 checkpoint in
+   torchvision's names (eval logits bit-identical to the source model's).
+11. vision: ResNet-50 at full width (1000 classes, 224x224), the model of
    ``python -m bluefog_tpu_torch.bench``. A check of the bf16
    ``channels_last`` model against the same weights in f32 on the card
    (logits, every gradient, the BN buffers after one train-mode forward;
@@ -196,6 +214,42 @@ TOL_CE_GRAD_L2 = 3e-3
 MOE_EXPERTS = 8
 TOL_ROUTED_APART = 2e-2
 TOL_SWITCH = 1e-5
+
+# the experts phase. (a) A virtual expert-parallel group of EP_N ranks of
+# EP_TOKENS tokens at the headline MoE width (d 2048, d_ff 8192, E = EP_N,
+# bf16 compute, f32 parameters): the package's local steps (``switch_send``,
+# ``expert_ffn``, ``switch_combine``) for every virtual rank in one process,
+# the lists transposed for each all-to-all, against the dense ``SwitchFFN``
+# oracle on the same weights, run rank by rank so that the router's
+# products have the virtual ranks' shapes and route alike (checked). The
+# tokens share an offset that raises expert 0's router logit by EP_SKEW
+# (the others' logits are N(0, 1)), so expert 0 draws more than its
+# capacity at EP_DROP_FACTOR and drops tokens on every rank.
+# At capacity factor EP_N nothing drops: the outputs and the gradients of
+# x, gate, up and down as ``nerr`` within TOL_EP. At EP_DROP_FACTOR the kept
+# tokens within TOL_EP, the dropped ones exactly 0, their count equal to the
+# count from the routing (each expert's tokens past its capacity, in token
+# order). The planted fault (rank 0's buffer for its busiest expert
+# delivered to the next expert) must land beyond TOL_EP. (b) The
+# expert-parallel MoE LM at the headline width at world 1 (E = 1: one
+# expert per rank is the only layout;
+# blocks 1 and 3 MoE), ``ep_lm_loss_fn`` with flash attention under plain
+# Adam: the first loss against the dense-mode E = 1 model on the same
+# weights (``lm_loss`` plus the aux term, exactly 1 per MoE layer at E = 1),
+# relative, within TOL_EP_LOSS. (c) The examples at world 1 on the card.
+EP_N = 8
+EP_TOKENS = 1024
+EP_DROP_FACTOR = 2.0
+EP_SKEW = 1.0
+EP_FAULTS = ("wrong_expert",)
+# measured on an H100 (PERF.md): out, dx and dgate 0 (each output row is
+# the same bf16 products in both), dup 3.2e-3-4.2e-3 and ddown
+# 3.7e-3-4.1e-3 (the weight gradients sum the tokens in another order);
+# the planted fault read 0.83-0.92
+TOL_EP = 1e-2
+# (b) measured 1.3e-7 (one f32 ulp of the loss): at E=1 the dispatch is a
+# copy and the expert the dense FFN on twice the rows
+TOL_EP_LOSS = 1e-6
 
 # the optimizers phase. (a) every op at world 1 against its closed form in
 # plain torch on OPS_SHAPE, exactly. (c) and (d): the largest over the
@@ -1346,6 +1400,342 @@ def moe_train(bf, fl, torch) -> dict:
             "losses": run["losses"]}
 
 
+def _vexperts(torch, gate, up, down, xs, capacity: int, dtype,
+              fault=None) -> tuple:
+    """The virtual group's forward: ``switch_send`` on every rank, the send
+    buffers transposed (expert j gets every rank's block j, in rank order),
+    ``expert_ffn`` with expert j's weights, the results transposed back and
+    ``switch_combine`` on every rank. Returns each rank's output and its
+    ``switch_send`` tuple. ``fault="wrong_expert"`` delivers rank 0's
+    buffer for the expert most of its tokens chose to the next expert, and
+    that one's to it."""
+    from bluefog_tpu_torch.parallel import expert as ex
+
+    n = len(xs)
+    sent = [ex.switch_send(gate, x, n, capacity, dtype) for x in xs]
+    swap = {}
+    if fault == "wrong_expert":
+        e = int(torch.bincount(sent[0][4], minlength=n).argmax())
+        swap = {e: (e + 1) % n, (e + 1) % n: e}
+    recv = []
+    for j in range(n):
+        blocks = [s[0][j] for s in sent]
+        blocks[0] = sent[0][0][swap.get(j, j)]
+        recv.append(torch.stack(blocks))
+    ys = [ex.expert_ffn(recv[j], up[j:j + 1], down[j:j + 1], dtype)
+          for j in range(n)]
+    outs = [ex.switch_combine(s[1], torch.stack([y[r] for y in ys]), s[2],
+                              xs[r].dtype) for r, s in enumerate(sent)]
+    return outs, sent
+
+
+def _kept_by_routing(torch, best, n: int, capacity: int):
+    """[t] bool: a token is kept when at most ``capacity`` tokens before it
+    (itself included), in token order, chose its expert."""
+    seen = [0] * n
+    kept = []
+    for e in best.tolist():
+        seen[e] += 1
+        kept.append(seen[e] <= capacity)
+    return torch.tensor(kept, device=best.device)
+
+
+def virtual_experts(torch, dev, t: int, d: int, d_ff: int, n: int, dtype,
+                    drop_factor: float = EP_DROP_FACTOR,
+                    skew: float = EP_SKEW, seed: int = 41,
+                    timed: bool = False) -> dict:
+    """(a) The virtual expert-parallel group of ``n`` ranks of ``t`` tokens
+    against the dense ``SwitchFFN`` oracle: errors at capacity factor n, the
+    drop check at ``drop_factor``, ``EP_FAULTS`` planted, and with
+    ``timed`` the CUDA-event ms of each direction summed over the virtual
+    ranks beside the oracle's."""
+    from bluefog_tpu_torch.parallel import SwitchFFN
+
+    oracle = SwitchFFN(d, n, d_ff, dtype, device=dev, seed=seed)
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    g0 = oracle.gate.detach()[:, 0]
+    x = (torch.randn((n * t, d), generator=gen, device=dev)
+         + skew * g0 / g0.square().sum())
+    cot = torch.randn((n * t, d), generator=gen, device=dev)
+    xs_of = lambda a: list(a.split(t))  # noqa: E731
+    xo = x.clone().requires_grad_(True)
+    want = torch.cat([oracle(xr) for xr in xs_of(xo)])
+    want.backward(cot)
+    ref = {"out": want.detach(), "dx": xo.grad, "dgate": oracle.gate.grad,
+           "dup": oracle.up.grad, "ddown": oracle.down.grad}
+    ws = [w.detach().clone().requires_grad_(True)
+          for w in (oracle.gate, oracle.up, oracle.down)]
+    xv = x.clone().requires_grad_(True)
+    outs, sent = _vexperts(torch, *ws, xs_of(xv), math.ceil(n * t / n),
+                           dtype)
+    got = torch.cat(outs)
+    got.backward(cot)
+    errors = {k: nerr(a, ref[k]) for k, a in (
+        ("out", got.detach()), ("dx", xv.grad), ("dgate", ws[0].grad),
+        ("dup", ws[1].grad), ("ddown", ws[2].grad))}
+    with torch.no_grad():
+        routes = [oracle.route(xr)[1] for xr in xs_of(x)]
+        same = all(bool(torch.equal(s[4], r)) for s, r in zip(sent, routes))
+        planted = {f: nerr(torch.cat(_vexperts(
+            torch, *ws, xs_of(x), t, dtype, fault=f)[0]), ref["out"])
+            for f in EP_FAULTS}
+        cap = math.ceil(drop_factor * t / n)
+        outs, sent = _vexperts(torch, *ws, xs_of(x), cap, dtype)
+        kept = torch.cat([_kept_by_routing(torch, s[4], n, cap)
+                          for s in sent])
+        got = torch.cat(outs)
+        counts = [torch.bincount(s[4], minlength=n) for s in sent]
+        expected = sum(int((c - cap).clamp_min(0).sum()) for c in counts)
+        drops = {"capacity": cap, "kept_err": nerr(got[kept],
+                                                    ref["out"][kept]),
+                 "dropped_max": float(got[~kept].abs().max())
+                 if bool((~kept).any()) else 0.0,
+                 "dropped": int((~kept).sum()),
+                 "zero_rows": int((got.abs().amax(-1) == 0).sum()),
+                 "expected": expected}
+    res = {"errors": errors, "drops": drops, "planted": planted,
+           "routing_identical": same}
+    if timed:
+        res["ms"] = _experts_ms(torch, oracle, ws, x, cot, t, cap, dtype)
+    return res
+
+
+def _experts_ms(torch, oracle, ws, x, cot, t: int, cap: int, dtype) -> dict:
+    """CUDA-event ms of the virtual group at capacity ``cap``, forward
+    alone and forward plus backward, summed over its ranks, and of the
+    dense oracle over all the tokens at once."""
+    xs = list(x.split(t))
+
+    def v_fwd():
+        with torch.no_grad():
+            _vexperts(torch, *ws, xs, cap, dtype)
+
+    def v_both():
+        outs, _ = _vexperts(torch, *ws, xs, cap, dtype)
+        torch.cat(outs).backward(cot)
+
+    def o_fwd():
+        with torch.no_grad():
+            oracle(x)
+
+    def o_both():
+        oracle(x).backward(cot)
+
+    ms = {"virtual fwd": cuda_ms(v_fwd, 10), "virtual fwd+bwd":
+          cuda_ms(v_both, 10), "oracle fwd": cuda_ms(o_fwd, 10),
+          "oracle fwd+bwd": cuda_ms(o_both, 10)}
+    ms["virtual bwd"] = ms["virtual fwd+bwd"] - ms["virtual fwd"]
+    ms["oracle bwd"] = ms["oracle fwd+bwd"] - ms["oracle fwd"]
+    return ms
+
+
+def experts_check(torch, dev) -> dict:
+    """(a) at the headline MoE width, bf16: the limits, the drop count, the
+    planted faults and the times."""
+    res = virtual_experts(torch, dev, EP_TOKENS, 2048, 8192, EP_N,
+                          torch.bfloat16, timed=True)
+    e, dr = res["errors"], res["drops"]
+    log(f"experts check (virtual group of {EP_N}, {EP_TOKENS} tokens each, "
+        f"d 2048, d_ff 8192, bf16, vs the dense SwitchFFN): "
+        + " ".join(f"{k}={v:.3e}" for k, v in e.items())
+        + f"; limit TOL_EP={TOL_EP}; routing identical="
+        f"{res['routing_identical']}")
+    log(f"experts drops (capacity factor {EP_DROP_FACTOR}, capacity "
+        f"{dr['capacity']}): kept err={dr['kept_err']:.3e} dropped max="
+        f"{dr['dropped_max']} dropped={dr['dropped']} zero rows="
+        f"{dr['zero_rows']} expected from the routing={dr['expected']}")
+    for f, v in res["planted"].items():
+        log(f"experts check, planted {f}: out={v:.3e}")
+    log("experts ms (CUDA events, summed over the virtual ranks, capacity "
+        f"factor {EP_DROP_FACTOR}): "
+        + " ".join(f"{k}={v:.4f}" for k, v in res["ms"].items()))
+    if not res["routing_identical"]:
+        raise RuntimeError("the virtual group routed apart from the oracle")
+    bad = {k: v for k, v in e.items() if not v <= TOL_EP}
+    if bad or not dr["kept_err"] <= TOL_EP:
+        raise RuntimeError(f"the virtual expert group disagrees with the "
+                           f"dense oracle beyond TOL_EP={TOL_EP}: {bad} "
+                           f"{dr}")
+    if not (dr["dropped_max"] == 0.0 and dr["dropped"] == dr["expected"]
+            == dr["zero_rows"] and dr["expected"] > 0):
+        raise RuntimeError(f"the dropped tokens are not the routing's: {dr}")
+    for f, v in res["planted"].items():
+        if v <= TOL_EP:
+            raise RuntimeError(f"the experts check missed the planted "
+                               f"fault {f}: {v}")
+    return res
+
+
+def ep_train(bf, fl, torch) -> dict:
+    """(b) The expert-parallel MoE LM at the headline width, world 1 (E=1,
+    blocks 1 and 3 MoE), ``ep_lm_loss_fn`` with flash attention under
+    plain Adam: the first loss against the dense-mode E=1 model's, ms/step,
+    tokens/s, peak memory, falling losses, ``LAYERS`` launches of each
+    kernel per step; beside it the dense E=1 model's ms/step and peak under
+    the same Adam (what the dispatch costs where it routes nothing)."""
+    from bluefog_tpu_torch.parallel import ep_lm_loss_fn
+
+    bf.init()
+    try:
+        dev = torch.device("cuda", torch.cuda.current_device())
+        batch = headline_batch(torch, dev)
+        dense = headline_model(bf, torch, dev, fl.flash_attention,
+                               num_experts=1, moe_every=2)
+        with torch.no_grad():
+            want = float(bf.models.lm_loss(dense, batch)) + 0.01 * 2
+        base = _train_steps(fl, torch, _plain_adam(dense, bf.models.lm_loss),
+                            batch)
+        del dense
+        torch.cuda.empty_cache()
+        model = headline_model(bf, torch, dev, fl.flash_attention,
+                               num_experts=1, moe_every=2,
+                               expert_axis="expert")
+        opt = _plain_adam(model, ep_lm_loss_fn(model))
+        run = _train_steps(fl, torch, opt, batch)
+    finally:
+        bf.shutdown()
+    dt = run["dt"]
+    rel = abs(run["losses"][0] - want) / abs(want)
+    log(f"ep train (expert-parallel MoE LM, E=1, world 1, plain Adam): "
+        f"layers={LAYERS} (MoE blocks 1, 3) seq={SEQ} ms/step="
+        f"{dt * 1e3:.3f} tokens/s={SEQ / dt:.1f} peak_mem_GiB="
+        f"{run['peak'] / 2**30:.3f}")
+    log("ep train losses: " + " ".join(f"{x:.5f}" for x in run["losses"])
+        + f"; first against the dense E=1 model's {want:.5f}: relative "
+        f"{rel:.3e} (limit TOL_EP_LOSS={TOL_EP_LOSS})")
+    log(f"ep train, the dense E=1 model the same way: ms/step="
+        f"{base['dt'] * 1e3:.3f} peak_mem_GiB={base['peak'] / 2**30:.3f}")
+    log(f"ep train launches: {run['counts']}")
+    _check_training("ep train", run, LAYERS)
+    if not rel <= TOL_EP_LOSS:
+        raise RuntimeError(f"the expert-parallel LM's loss {run['losses'][0]}"
+                           f" differs from the dense model's {want}")
+    return {"counts": run["counts"], "ms_per_step": dt * 1e3,
+            "tokens_per_s": SEQ / dt, "peak_bytes": run["peak"],
+            "losses": run["losses"], "vs_dense": rel,
+            "dense_ms_per_step": base["dt"] * 1e3,
+            "dense_peak_bytes": base["peak"]}
+
+
+def _torchvision_names(model) -> dict:
+    """The port's ResNet ``state_dict`` under torchvision's names (the
+    inverse of ``resnet_from_torch``'s renaming), for a checkpoint in
+    torchvision's format made from the port's own model."""
+    stages = {"BottleneckBlock": [3, 4, 6, 3],
+              "BasicBlock": [2, 2, 2, 2]}[model.block_name]
+    where = [(s + 1, b) for s, count in enumerate(stages)
+             for b in range(count)]
+    bn = {"scale": "weight", "bias": "bias", "mean": "running_mean",
+          "var": "running_var"}
+    out = {}
+    for name, t in model.state_dict().items():
+        *mods, leaf = name.split(".")
+        if mods[0] == "conv_init":
+            key = "conv1.weight"
+        elif mods[0] == "bn_init":
+            key = f"bn1.{bn[leaf]}"
+        elif mods[0] == "head":
+            key = f"fc.{leaf}"
+        else:
+            s, b = where[int(mods[0].rsplit("_", 1)[1])]
+            kind, _, c = mods[1].partition("_")
+            if kind == "Conv":
+                sub = f"conv{int(c) + 1}.{leaf}"
+            elif kind == "BatchNorm":
+                sub = f"bn{int(c) + 1}.{bn[leaf]}"
+            elif kind == "conv":            # conv_proj
+                sub = f"downsample.0.{leaf}"
+            else:                           # norm_proj
+                sub = f"downsample.1.{bn[leaf]}"
+            key = f"layer{s}.{b}.{sub}"
+        out[key] = t
+    return out
+
+
+def examples_check(bf, torch, dev) -> dict:
+    """(c) The examples at world 1 on the card, each through its ``main``:
+    ``benchmark.py`` at its defaults (its img/s line), a short
+    ``resnet.py`` run with a checkpoint and a resume, ``moe.py --experts
+    1``, ``mnist.py`` for one epoch, ``average_consensus.py``,
+    ``optimization.py`` for each method (``push_diging`` raising); then
+    ``resnet_from_torch`` on a ResNet-50 checkpoint in torchvision's
+    names: the loaded model's eval logits bit-identical to the source's."""
+    import tempfile
+
+    from bluefog_tpu_torch.examples import (average_consensus, benchmark,
+                                            mnist, moe, optimization, resnet)
+    from bluefog_tpu_torch.utils import resnet_from_torch
+
+    res, secs = {}, {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        secs[name] = time.perf_counter() - t0
+        return out
+
+    res["benchmark_img_per_s"] = timed("benchmark", lambda: benchmark.main([]))
+    with tempfile.TemporaryDirectory(prefix="bft_resnet_") as tmp:
+        common = ["--epochs", "2", "--steps-per-epoch", "10",
+                  "--checkpoint-format", os.path.join(tmp, "ck-{epoch}")]
+        hist, _ = timed("resnet", lambda: resnet.train(
+            resnet.parse_args(common)))
+        common[1] = "3"
+        hist2, _ = timed("resnet resume", lambda: resnet.train(
+            resnet.parse_args(common + ["--resume-from",
+                                        os.path.join(tmp, "ck-2")])))
+        if not (len(hist) == 2 and len(hist2) == 1 and os.path.isdir(
+                os.path.join(tmp, "ck-3"))):
+            raise RuntimeError(f"resnet.py resume ran {hist2} after {hist}")
+        res["resnet_history"] = hist + hist2
+    timed("moe", lambda: moe.main(["--experts", "1"]))
+    res["mnist_accuracy"] = timed("mnist", lambda: mnist.main(["--epochs",
+                                                               "1"]))
+    if timed("average_consensus", lambda: average_consensus.main([])) != 0:
+        raise RuntimeError("average_consensus.py failed")
+    res["optimization"] = {}
+    for method in ("diffusion", "exact_diffusion", "gradient_tracking"):
+        mse = timed(method, lambda: optimization.main(
+            ["--method", method, "--task", "linear_regression",
+             "--max-iter", "200"]))
+        res["optimization"][method] = mse[-1]
+        if not mse[-1] < 1e-3:
+            raise RuntimeError(f"optimization.py {method}: {mse[-1]}")
+    try:
+        optimization.main(["--method", "push_diging", "--max-iter", "1"])
+        raise RuntimeError("push_diging did not raise")
+    except NotImplementedError as e:
+        log(f"push_diging: {e}")
+
+    from bluefog_tpu_torch.models.layers import BatchNorm
+
+    src = bf.models.ResNet50(device=dev, seed=3).eval()
+    gen = torch.Generator(device=dev).manual_seed(4)
+    _redraw_norms(src, torch, gen)
+    with torch.no_grad():
+        for mod in src.modules():
+            if isinstance(mod, BatchNorm):
+                mod.mean.normal_(0.0, 0.1, generator=gen)
+                mod.var.uniform_(0.5, 1.5, generator=gen)
+    dst = bf.models.ResNet50(device=dev, seed=5).eval()
+    dst.load_state_dict(resnet_from_torch(_torchvision_names(src), 50))
+    x = torch.randn((8, 224, 224, 3), generator=gen, device=dev)
+    with torch.no_grad():
+        same = bool(torch.equal(src(x), dst(x)))
+    res["resnet_from_torch_identical"] = same
+    log(f"examples (world 1 on the card): seconds "
+        + " ".join(f"{k}={v:.2f}" for k, v in secs.items())
+        + f"; benchmark img/s={res['benchmark_img_per_s']:.1f}; mnist "
+        f"accuracy={res['mnist_accuracy']:.3f}; optimization final errors "
+        f"{res['optimization']}; resnet_from_torch ResNet-50 eval logits "
+        f"bit-identical={same}")
+    if not same:
+        raise RuntimeError("resnet_from_torch: the loaded ResNet-50's logits "
+                           "differ from the source model's")
+    res["seconds"] = secs
+    return res
+
+
 def _redraw_norms(model, torch, gen) -> None:
     """BN scales ~ U(0.5, 1.5), those initialised to zero (each block's
     last) ~ U(0.1, 0.3), biases ~ N(0, 0.1): every residual branch carries
@@ -1629,6 +2019,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     moe["train"] = moe_train(bf, fl, torch)
     torch.cuda.empty_cache()
+    experts = {"check": experts_check(torch, dev)}
+    torch.cuda.empty_cache()
+    experts["train"] = ep_train(bf, fl, torch)
+    torch.cuda.empty_cache()
+    experts["examples"] = examples_check(bf, torch, dev)
+    torch.cuda.empty_cache()
     vision = dict(check=vision_check(bf, torch, dev))
     torch.cuda.empty_cache()
     vision["train"] = vision_train(bf, torch, card)
@@ -1646,14 +2042,16 @@ def main() -> int:
                 "train": run["counts"][name],
                 f"virtual ring of {RING_N}": ctx["ring_check"]["launches"][
                     name],
-                "flash ring LM": ctx["ring_train"]["counts"][name]},
+                "flash ring LM": ctx["ring_train"]["counts"][name],
+                "expert-parallel MoE LM": experts["train"]["counts"][name]},
         })
     os.makedirs(os.path.dirname(OUT), exist_ok=True)
     with open(OUT, "w") as f:
         json.dump({"card": card, "kernels": kernels, "train": run,
                    "context": ctx, "optimizers": opts, "ce": ce,
                    "lm_bench": lm_bench_runs,
-                   "moe": moe, "vision": vision}, f, indent=1)
+                   "moe": moe, "experts": experts, "vision": vision}, f,
+                  indent=1)
     log(f"wall: {time.perf_counter() - t_start:.1f} s after the card check")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -5,6 +5,9 @@ this file as separate processes, one per rank:
 
     python _torch_port_child.py <mode> <rank> <world> <dir>
 
+(``torchrun ... _torch_port_child.py examples <dir>`` instead runs the
+port's examples in a ``torchrun`` world, :func:`_examples`.)
+
 Each child joins the process group through ``<dir>/store``, reads its
 inputs from ``<dir>/inputs.npz`` (made by the parent with numpy from a
 seed), runs ``<mode>`` through the port, and writes ``<dir>/out_<rank>.npz``.
@@ -524,7 +527,188 @@ def _checkpoint(bf, torch, rank: int, world: int, inp) -> dict:
     return {k: v.detach().float().numpy() for k, v in out.items()}
 
 
+def _expert(bf, torch, rank: int, world: int, inp) -> dict:
+    """Expert parallelism on this rank's tokens: ``ep_apply`` (forward at
+    several capacity factors, the zero-gate drop cases, gradients of
+    ``sum(y * cot) + 0.1 * mean(aux)``, bf16, the checks), then the MoE LM
+    of ``lm:<path>`` flax weights through ``ep_lm_apply`` and
+    ``ep_lm_loss_fn`` (loss and every gradient), ``ep_lm_init``, and 30
+    plain Adam steps."""
+    P = bf.parallel
+    from bluefog_tpu_torch.utils import params_from_jax
+
+    n = world
+    b = inp["x"].shape[0] // n
+    x = torch.from_numpy(inp["x"][rank * b:(rank + 1) * b])
+    cot = torch.from_numpy(inp["cot"][rank * b:(rank + 1) * b])
+    params = {k: torch.from_numpy(inp[f"sw:{k}"]) for k in
+              ("gate", "up", "down")}
+    zero = dict(params, gate=torch.zeros_like(params["gate"]))
+    out, flags = {}, {}
+    for cf in inp["capacity_factors"]:
+        out[f"fwd_{cf}"], out[f"aux_{cf}"] = P.ep_apply(params, x,
+                                                        capacity_factor=cf)
+        p = {k: v.clone().requires_grad_(True) for k, v in params.items()}
+        xx = x.clone().requires_grad_(True)
+        y, aux = P.ep_apply(p, xx, capacity_factor=cf)
+        ((y * cot).sum() + 0.1 * aux / n).backward()
+        out[f"dx_{cf}"], out[f"dgate_{cf}"] = xx.grad, p["gate"].grad
+        out[f"dup_{cf}"] = p["up"].grad[rank]
+        out[f"ddown_{cf}"] = p["down"].grad[rank]
+        flags[f"other_rows_{cf}"] = int(not any(
+            p[k].grad[r].any() for k in ("up", "down") for r in range(n)
+            if r != rank))
+    for cf in inp["zero_gate_factors"]:
+        out[f"zero_{cf}"], out[f"zero_aux_{cf}"] = P.ep_apply(
+            zero, x, capacity_factor=cf)
+    out["bf16"], _ = P.ep_apply(params, x, capacity_factor=float(n),
+                                dtype=torch.bfloat16)
+    flags["bf16_dtype"] = int(out["bf16"].dtype == torch.float32)
+    flags["bad_experts"] = _raises(
+        ValueError, lambda: P.ep_apply(dict(params, up=params["up"][:2]), x),
+        "experts")
+    bad = x[:1] if rank == 3 else x
+    flags["bad_batch"] = _raises(ValueError, lambda: P.ep_apply(params, bad),
+                                 "divide")
+
+    cfg = {k: int(inp[k]) for k in ("vocab", "layers", "heads", "d_model",
+                                    "d_ff")}
+
+    def lm(seed=0):
+        return bf.models.MoETransformerLM(
+            vocab_size=cfg["vocab"], num_experts=n, num_layers=cfg["layers"],
+            num_heads=cfg["heads"], d_model=cfg["d_model"],
+            d_ff=cfg["d_ff"], moe_every=2, expert_axis="expert",
+            capacity_factor=float(inp["lm_capacity_factor"]), device="cpu",
+            seed=seed)
+
+    model = lm()
+    tree = _unflatten({k[len("lm:"):]: v for k, v in inp.items()
+                       if k.startswith("lm:")})
+    model.load_state_dict(params_from_jax(tree, expert_rank=rank))
+    toks = torch.from_numpy(inp["tokens"][rank:rank + 1]).long()
+    tgts = torch.from_numpy(inp["targets"][rank:rank + 1]).long()
+    with torch.no_grad():
+        out["lm_logits"], out["lm_aux"] = P.ep_lm_apply(model, toks)
+    loss_fn = P.ep_lm_loss_fn(model)
+    loss = loss_fn(model, (toks, tgts))
+    loss.backward()
+    out["lm_loss"] = loss
+    out.update({f"lm_grad:{name}": p.grad
+                for name, p in model.named_parameters()})
+    flags["lm_wrong_axis"] = _raises(
+        ValueError, lambda: P.ep_lm_loss_fn(model, axis="other"),
+        "expert_axis")
+
+    seeded = lm(seed=5)
+    full = P.ep_lm_init(model, seed=5)
+    flags["lm_init_slice"] = int(all(
+        torch.equal(v, full[k][rank:rank + 1]) if k.endswith(("up", "down"))
+        and ".moe." in k else torch.equal(v, full[k])
+        for k, v in model.state_dict().items()))
+    flags["lm_seed_is_twin"] = int(all(
+        torch.equal(a, b) for a, b in zip(seeded.state_dict().values(),
+                                          model.state_dict().values())))
+
+    model.load_state_dict(params_from_jax(tree, expert_rank=rank))
+    adam = torch.optim.Adam(model.parameters(), lr=3e-3)
+    losses = []
+    for _ in range(int(inp["train_steps"])):
+        adam.zero_grad(set_to_none=True)
+        loss = loss_fn(model, (toks, tgts))
+        loss.backward()
+        adam.step()
+        losses.append(float(loss.detach()))
+    out["train_losses"] = torch.tensor(losses)
+    out["train_up"] = model.block_1.moe.up
+    out["train_head"] = model.lm_head.weight
+    out = {k: v.detach().float().numpy() for k, v in out.items()}
+    out.update({f"flag:{k}": np.array(v) for k, v in flags.items()})
+    return out
+
+
+def _optimization(bf, torch, rank: int, world: int, inp) -> dict:
+    """``examples/optimization.py``'s algorithms on this rank's ``X``, ``y``
+    over the ring: every method after ``cmp_steps`` steps (DGD's iterate
+    as their ``w_opt``), then the convergence runs at the JAX tests'
+    budgets, the two nonblocking handles in flight, and ``push_diging``."""
+    from bluefog_tpu_torch.examples import optimization as ex
+
+    ex.set_example_topology("ring")
+    X, y = (torch.from_numpy(inp[k][rank]) for k in ("X", "y"))
+    grad_fn = ex.make_grad_fn(X, y, "linear_regression", 1e-2)
+    k = int(inp["cmp_steps"])
+    out, flags = {}, {}
+    out["cmp_dgd"] = ex.distributed_grad_descent(grad_fn, world, 5,
+                                                 maxite=k, alpha=0.1)
+    for name, alpha in (("diffusion", 0.05), ("exact_diffusion", 0.1),
+                        ("gradient_tracking", 0.05)):
+        out[f"cmp_{name}"], _ = ex.ALGORITHMS[name](
+            grad_fn, out["cmp_dgd"], world, 5, maxite=k, alpha=alpha)
+
+    w_opt = ex.distributed_grad_descent(grad_fn, world, 5, maxite=400,
+                                        alpha=0.1)
+    out["w_opt"] = w_opt
+    out["w_opt_global_grad"] = bf.allreduce(grad_fn(w_opt), average=True)
+    for name, iters, alpha in (("exact_diffusion", 100, 0.1),
+                               ("gradient_tracking", 200, 0.05),
+                               ("diffusion", 150, 0.05)):
+        out[f"conv_{name}"], mse = ex.ALGORITHMS[name](
+            grad_fn, w_opt, world, 5, maxite=iters, alpha=alpha)
+        out[f"mse_{name}"] = torch.tensor(mse)
+
+    w = torch.zeros((5, 1))
+    q = grad_fn(w)
+    h1 = bf.neighbor_allreduce_nonblocking(w, name="overlap.w")
+    h2 = bf.neighbor_allreduce_nonblocking(q, name="overlap.q")
+    flags["overlap_handles_differ"] = int(h1 != h2)
+    out["overlap_w"], out["overlap_q"] = bf.synchronize(h1), \
+        bf.synchronize(h2)
+    out["overlap_q_in"] = q
+    flags["push_diging"] = _raises(
+        NotImplementedError, lambda: ex.push_diging(grad_fn, w_opt, world, 5),
+        "Queue 1, item 6")
+    out = {k: v.detach().float().numpy() for k, v in out.items()}
+    out.update({f"flag:{k}": np.array(v) for k, v in flags.items()})
+    return out
+
+
+def _examples(tmp_dir: str) -> None:
+    """Every example of ``bluefog_tpu_torch/examples/`` (but the
+    long-context one) through its entry point, in turn, in this rank of a
+    ``torchrun`` world on the CPU: one process group for all of them, which
+    each ``bf.init`` joins; rank 0 prints their lines."""
+    import torch.distributed as dist
+
+    from bluefog_tpu_torch.examples import (average_consensus, benchmark,
+                                            mnist, moe, optimization, resnet)
+
+    cpu = ["--device", "cpu"]
+    dist.init_process_group("gloo")
+    if average_consensus.main(cpu) != 0:
+        raise SystemExit("average consensus failed")
+    moe.main(cpu + ["--experts", str(dist.get_world_size())])
+    benchmark.main(cpu + ["--model", "mlp", "--batch-size", "8",
+                          "--num-warmup-batches", "1",
+                          "--num-batches-per-iter", "2", "--num-iters", "2"])
+    mnist.main(cpu + ["--epochs", "1", "--samples-per-rank", "256"])
+    optimization.main(cpu + ["--method", "gradient_tracking", "--task",
+                             "linear_regression", "--max-iter", "200"])
+    common = cpu + ["--batch-size", "4", "--val-batch-size", "4",
+                    "--base-lr", "0.004", "--warmup-epochs", "2",
+                    "--steps-per-epoch", "6", "--classes", "4",
+                    "--checkpoint-format",
+                    os.path.join(tmp_dir, "ck-{epoch}")]
+    resnet.train(resnet.parse_args(common + ["--epochs", "2"]))
+    resnet.train(resnet.parse_args(common + [
+        "--epochs", "3", "--resume-from", os.path.join(tmp_dir, "ck-2")]))
+    dist.destroy_process_group()
+
+
 def main() -> None:
+    if sys.argv[1] == "examples":     # a rank of a torchrun world
+        _examples(sys.argv[2])
+        return
     mode, rank, world, tmp_dir = sys.argv[1], int(sys.argv[2]), \
         int(sys.argv[3]), sys.argv[4]
     import torch
@@ -540,7 +724,8 @@ def main() -> None:
     out = {"ops": _ops, "slice": _slice, "vision": _vision,
            "subgroup": _subgroup, "collectives": _collectives,
            "optimizers": _optimizers, "context": _context,
-           "checkpoint": _checkpoint}[mode](bf, torch, rank, world, inp)
+           "checkpoint": _checkpoint, "expert": _expert,
+           "optimization": _optimization}[mode](bf, torch, rank, world, inp)
     bf.barrier()
     bf.shutdown()
     np.savez(os.path.join(tmp_dir, f"out_{rank}.npz"), **out)

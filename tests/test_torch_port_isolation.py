@@ -19,7 +19,9 @@ import bluefog_tpu
 import bluefog_tpu.parallel
 import bluefog_tpu_torch as bft
 from bluefog_tpu_torch import bench, lm_bench
-from bluefog_tpu_torch.examples import long_context_lm
+from bluefog_tpu_torch.examples import (average_consensus, benchmark,
+                                        long_context_lm, mnist, moe,
+                                        optimization, resnet)
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -60,6 +62,12 @@ _ENTRIES = {
         ["--steps", "1", "--attention", "ulysses"]),
     "long_context_lm.main --attention flash": lambda: long_context_lm.main(
         ["--steps", "1", "--attention", "flash"]),
+    "moe.main": lambda: moe.main(["--experts", "1", "--steps", "1"]),
+    "average_consensus.main": lambda: average_consensus.main([]),
+    "mnist.main": lambda: mnist.main(["--epochs", "1"]),
+    "optimization.main": lambda: optimization.main(["--max-iter", "1"]),
+    "benchmark.main": lambda: benchmark.main(["--model", "mlp"]),
+    "resnet.train": lambda: resnet.train(resnet.parse_args(["--epochs", "1"])),
 }
 
 
@@ -91,7 +99,11 @@ _SLICE_NAMES = [
 ]
 _PARALLEL_SLICE_NAMES = ["ring_attention", "ring_attention_shard",
                          "ulysses_attention", "ulysses_attention_shard",
-                         "cp_apply", "cp_loss_fn"]
+                         "cp_apply", "cp_loss_fn",
+                         # expert parallelism (Queue 1, item 7)
+                         "switch_dispatch", "ep_apply", "ep_place_params",
+                         "moe_param_specs", "ep_lm_init", "ep_lm_apply",
+                         "ep_lm_loss_fn"]
 _CHECKPOINT_NAMES = ["save", "save_async", "wait_pending", "restore",
                      "read_meta", "latest_path"]
 
@@ -124,6 +136,34 @@ def test_port_parallel_and_checkpoint_names_are_jax_names():
         assert callable(getattr(jax_ck, name)), name
 
 
+# ``parallel`` and ``utils`` against the JAX package's: the port's own
+# names (the flash backward and its launch counters, the JAX-weights loader),
+# the names absent on purpose (``ep_mesh`` and ``sequence_sharding`` build
+# or place on a JAX device mesh, which the port has not), and those of the
+# tensor and pipeline axes still to port (ROADMAP Queue 1, item 7)
+_PORT_ONLY = {"parallel": {"flash_block_bwd", "launch_counts",
+                           "reset_launch_counts"},
+              "utils": {"params_from_jax"}}
+_ABSENT_ON_PURPOSE = {"parallel": {"ep_mesh", "sequence_sharding"},
+                      "utils": set()}
+_NOT_YET = {"parallel": {"LM_TP_RULES", "tp_apply", "tp_loss_fn", "tp_mesh",
+                         "tp_shard_params", "pp_apply", "pp_forward_fn",
+                         "pp_loss_fn", "pp_mesh", "pp_place_params",
+                         "pp_stack_params", "pp_train_init",
+                         "pp_train_step_fn"},
+             "utils": set()}
+
+
+@pytest.mark.parametrize("module", ["parallel", "utils"])
+def test_port_parallel_and_utils_names_are_jax_names(module):
+    import bluefog_tpu.utils
+
+    port = set(getattr(bft, module).__all__)
+    jax_names = set(getattr(bluefog_tpu, module).__all__)
+    assert port - jax_names == _PORT_ONLY[module]
+    assert jax_names - port == _ABSENT_ON_PURPOSE[module] | _NOT_YET[module]
+
+
 # the context-parallel and checkpoint entry points take the caller's
 # tensors, modules and optimizer: they have no device of their own, and
 # before ``init`` (whose default is the card) they refuse to run at all
@@ -141,6 +181,13 @@ _NEEDS_INIT = {
         bft.models.TransformerLM(vocab_size=16, device="cpu")),
     "checkpoint.restore": lambda q: bft.checkpoint.restore(
         "no_such_checkpoint", None),
+    "SwitchFFN(expert_axis)": lambda q: bft.parallel.SwitchFFN(
+        8, 1, 16, expert_axis="expert", device="cpu"),
+    "ep_apply": lambda q: bft.parallel.ep_apply(
+        bft.parallel.SwitchFFN(8, 1, 16, device="cpu").state_dict(),
+        q[..., 0, :]),
+    "MoETransformerLM(expert_axis)": lambda q: bft.models.MoETransformerLM(
+        16, 1, expert_axis="expert", device="cpu"),
 }
 
 

@@ -204,12 +204,25 @@ def test_expert_init_uses_flax_fan_in():
 
 @pytest.mark.parametrize("build", ["SwitchFFN", "TransformerLM"])
 def test_expert_axis_is_not_ported_yet(build):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+    """The expert-parallel mode (``tests/test_torch_port_expert_parallel.py``)
+    holds one expert per rank of its group: it needs ``bf.init()`` first,
+    and 4 experts over a world of one raise."""
+    import bluefog_tpu_torch as bft
+
+    def make():
         if build == "SwitchFFN":
-            SwitchFFN(16, 4, 32, expert_axis="expert", device="cpu")
-        else:
-            TransformerLM(num_experts=4, expert_axis="expert", device="cpu",
-                          **CFG)
+            return SwitchFFN(16, 4, 32, expert_axis="expert", device="cpu")
+        return TransformerLM(num_experts=4, expert_axis="expert",
+                             device="cpu", **CFG)
+
+    with pytest.raises(RuntimeError, match="bf.init"):
+        make()
+    bft.init(device="cpu")
+    try:
+        with pytest.raises(ValueError, match="one expert per rank"):
+            make()
+    finally:
+        bft.shutdown()
 
 
 def test_params_from_jax_keeps_raw_leaves_to_switch_ffns():
