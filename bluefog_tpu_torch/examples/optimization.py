@@ -38,6 +38,7 @@ from torch.func import grad
 
 import bluefog_tpu_torch as bf
 from bluefog_tpu_torch import topology_util
+from bluefog_tpu_torch.runtime.state import _global_state
 
 
 # ---------------------------------------------------------------------------
@@ -210,10 +211,14 @@ def set_example_topology(name: str) -> None:
 def run(method: str = "exact_diffusion", task: str = "logistic_regression",
         topology: str = "ring", maxite: int = 500, alpha: float = 1e-1,
         rho: float = 1e-2, m: int = 20, n: int = 5, seed: int = 123417,
-        device="cpu"):
+        device=None):
     """Build the problem, solve it centrally and decentrally, report both
-    (rank 0 prints). Returns this rank's ``(w, w_opt, mse)``."""
+    (rank 0 prints). Returns this rank's ``(w, w_opt, mse)``. ``device``
+    defaults to the one ``bf.init`` chose (the card unless it was asked
+    for the CPU)."""
     size, me = bf.size(), bf.rank()
+    if device is None:
+        device = _global_state().device
     set_example_topology(topology)
     X, y = generate_data(seed, size, m, n, task=task)
     X, y = (torch.from_numpy(a[me]).to(device) for a in (X, y))

@@ -1,8 +1,9 @@
 """The parallel layer: attention (the dense oracle, flash attention as
 hand-written CUDA kernels with plain PyTorch twins, and ring and Ulysses
 context parallelism over the ranks), context-parallel LM execution, the
-chunked LM loss and the Switch mixture of experts (dense, and expert
-parallel over the ranks)."""
+chunked LM loss, the Switch mixture of experts (dense, and expert
+parallel over the ranks), Megatron tensor parallelism over a model group
+and GPipe pipeline parallelism over the stages of a group."""
 
 from .context import (
     reference_attention,
@@ -30,6 +31,16 @@ from .flash import (
     reset_launch_counts,
 )
 from .lm import chunked_ce_loss, cp_apply, cp_loss_fn
+from .pipeline import (
+    pp_apply,
+    pp_forward_fn,
+    pp_loss_fn,
+    pp_place_params,
+    pp_stack_params,
+    pp_train_init,
+    pp_train_step_fn,
+)
+from .tensor import LM_TP_RULES, tp_apply, tp_loss_fn, tp_shard_params
 
 __all__ = [
     "reference_attention",
@@ -54,4 +65,15 @@ __all__ = [
     "ep_lm_init",
     "ep_lm_apply",
     "ep_lm_loss_fn",
+    "LM_TP_RULES",
+    "tp_shard_params",
+    "tp_apply",
+    "tp_loss_fn",
+    "pp_stack_params",
+    "pp_place_params",
+    "pp_forward_fn",
+    "pp_loss_fn",
+    "pp_train_init",
+    "pp_train_step_fn",
+    "pp_apply",
 ]

@@ -32,13 +32,13 @@ from __future__ import annotations
 
 import math
 from functools import partial
-from typing import List, Sequence, Tuple
+from typing import List, Sequence
 
 import torch
 import torch.distributed as dist
 
 from ..ops.plan import _global_rank
-from ._exchange import _all_to_all, _Exchange
+from ._exchange import _all_to_all, _Exchange, _ring_group
 from .flash import _allowed, flash_block, flash_block_bwd
 
 _NEG = -1e30
@@ -164,27 +164,15 @@ def ring_backward_step(q, kc, vc, state, q_off: int, k_off: int,
 # the loop: rotations one rank forward
 # ---------------------------------------------------------------------------
 
-def _ring_group(group) -> Tuple[int, int]:
-    """``(me, n)`` of the ring: the runtime's rank and size over the world,
-    or this process's rank and size within ``group``."""
-    if group is None:
-        from ..runtime.state import _global_state
-
-        st = _global_state()
-        st.check_initialized()
-        return st.rank, st.size
-    return dist.get_rank(group), dist.get_world_size(group)
-
-
 def _rotate(tensors: Sequence[torch.Tensor], me: int, n: int,
-            group) -> List[torch.Tensor]:
-    """Send each tensor to rank ``(me + 1) % n`` and receive its
-    counterpart from ``(me - 1) % n``: one ``batch_isend_irecv`` round
+            group, step: int = 1) -> List[torch.Tensor]:
+    """Send each tensor to rank ``(me + step) % n`` and receive its
+    counterpart from ``(me - step) % n``: one ``batch_isend_irecv`` round
     (``ops/plan.py``'s pattern). The identity at n = 1."""
     if n == 1:
         return list(tensors)
-    dst = _global_rank(group, (me + 1) % n)
-    src = _global_rank(group, (me - 1) % n)
+    dst = _global_rank(group, (me + step) % n)
+    src = _global_rank(group, (me - step) % n)
     sends = [t.contiguous() for t in tensors]
     recvs = [torch.empty_like(t) for t in sends]
     ops = []

@@ -42,11 +42,10 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
-from torch.func import functional_call
 
 from ..runtime.state import _global_state, resolve_device
-from ._exchange import _all_to_all, _Exchange, _SumGrads
-from .context import _ring_group
+from ._exchange import (_all_to_all, _Exchange, _global_sum, _ring_group,
+                        _summed_forward, _SumGrads)
 
 
 def _check_layout(num_experts: int, n: int) -> None:
@@ -359,19 +358,6 @@ def _check_moe_model(model, group, axis: str) -> int:
     return n
 
 
-def _global_mean(local: torch.Tensor, n: int, group) -> torch.Tensor:
-    """The mean over the ranks of each rank's scalar ``local``, carrying
-    the gradient of ``local / n`` alone (the other ranks' terms are values:
-    their gradients reach the parameters through the exchanges and the
-    replicated parameters' summed gradients)."""
-    mine = local / n
-    if n == 1:
-        return mine
-    total = mine.detach().clone()
-    dist.all_reduce(total, op=dist.ReduceOp.SUM, group=group)
-    return mine + (total - mine).detach()
-
-
 def ep_lm_init(model, seed: int = 0) -> Dict[str, torch.Tensor]:
     """Draw an ``expert_axis`` MoE model's parameters from ``seed`` through
     its dense twin (the same config with ``expert_axis=None``, which holds
@@ -401,7 +387,7 @@ def ep_lm_apply(model, tokens: torch.Tensor, group=None,
     _check_batches(tokens.shape, group, n)
     _sum_aux(model)                      # nothing stale from an earlier call
     logits = model(tokens)
-    return logits, _global_mean(_sum_aux(model), n, group)
+    return logits, _global_sum(_sum_aux(model) / n, group, n)
 
 
 def ep_lm_loss_fn(model, group=None, axis: str = "expert",
@@ -422,14 +408,11 @@ def ep_lm_loss_fn(model, group=None, axis: str = "expert",
         tokens, targets = batch
         _check_batches(tokens.shape, group, n)
         specs = moe_param_specs(dict(model.named_parameters()), axis)
-        names = [name for name, p in model.named_parameters()
-                 if p.requires_grad and specs[name] is None]
-        summed = _SumGrads.apply(group, n, *(model.get_parameter(name)
-                                             for name in names))
         _sum_aux(model)
-        logits = functional_call(model, dict(zip(names, summed)), (tokens,))
+        logits = _summed_forward(model, group, n, (tokens,),
+                                 keep=lambda name: specs[name] is None)
         logp = torch.log_softmax(logits.float(), dim=-1)
         ce = -logp.gather(-1, targets[..., None]).mean()
-        return _global_mean(ce + aux_weight * _sum_aux(model), n, group)
+        return _global_sum((ce + aux_weight * _sum_aux(model)) / n, group, n)
 
     return loss

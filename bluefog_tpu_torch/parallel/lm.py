@@ -22,13 +22,11 @@ from functools import partial
 from typing import List
 
 import torch
-import torch.distributed as dist
 import torch.nn.functional as F
-from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint
 
-from ._exchange import _SumGrads
-from .context import (_check_shards, _ring_group, ring_attention_shard,
+from ._exchange import _global_nll, _ring_group, _summed_forward
+from .context import (_check_shards, ring_attention_shard,
                       ulysses_attention_shard)
 
 
@@ -151,25 +149,14 @@ def cp_loss_fn(model, group=None, kind: str = "ring"):
     def loss(model, batch) -> torch.Tensor:
         tokens, targets = batch
         n = _check_cp(model, tokens, kind, group)
-        names = [name for name, p in model.named_parameters()
-                 if p.requires_grad]
-        params = [model.get_parameter(name) for name in names]
-        summed = _SumGrads.apply(group, n, *params)
         with _cp_model(model, kind, group):
-            logits = functional_call(
-                model, dict(zip(names, summed)),
-                (tokens, _positions(tokens, group)))
+            logits = _summed_forward(model, group, n,
+                                     (tokens, _positions(tokens, group)))
         logp = torch.log_softmax(logits, dim=-1)
         local = -logp.gather(-1, targets[..., None]).sum()
-        # the full sequence's NLL sum and token count: a forward all-reduce
-        # of values only; this rank's loss carries the gradient of its own
-        # terms, and _SumGrads adds the other ranks'
-        totals = torch.stack([local.detach(),
-                              torch.tensor(float(targets.numel()),
-                                           device=local.device)])
-        if n > 1:
-            dist.all_reduce(totals, op=dist.ReduceOp.SUM, group=group)
-        total, count = totals[0], totals[1]
-        return (local + (total - local).detach()) / count
+        # the full sequence's NLL sum over its token count: this rank's loss
+        # carries the gradient of its own terms, and _SumGrads adds the
+        # other ranks'
+        return _global_nll(local, targets.numel(), group, n)
 
     return loss

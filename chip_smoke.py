@@ -99,7 +99,26 @@ Phases (each raises on failure; the script then exits non-zero):
    ``mnist.py`` (one epoch), ``average_consensus.py``, ``optimization.py``
    for each method, and ``resnet_from_torch`` on a ResNet-50 checkpoint in
    torchvision's names (eval logits bit-identical to the source model's).
-11. vision: ResNet-50 at full width (1000 classes, 224x224), the model of
+11. parallel, at the headline width: (a) a virtual tensor-parallel group
+   of 4 (each rank 4 heads, d_ff 2048, vocab 8192, embedding features
+   512; ``tensor.tp_logits`` over the list of the ranks' models, sums for
+   the all-reduces and cats for the all-gathers) against the dense flash
+   model: logits and every rank's gradient within ``TOL_TP``, 16 launches
+   of each kernel per forward and backward, two planted faults beyond the
+   limit, each direction's ms summed over the virtual ranks beside the
+   dense model's. (b) A virtual pipeline of 4 stages (one layer each, 4
+   microbatches of 1 x 8192; the tick schedule with the handoff a list
+   roll) against the dense model on the same 4 sequences: logits and every
+   stage's and ``rest``'s gradient within ``TOL_PP``, the plain and fused
+   losses against ``lm_loss`` within ``TOL_PP_LOSS``, launches, a planted
+   fault, ms and peak memory of each form. (c) World 1 on NCCL:
+   ``tp_loss_fn`` under plain Adam (losses bit-identical to plain Adam on
+   ``lm_loss``) and ``pp_train_step_fn`` on 2 x 8192 in 2 microbatches,
+   plain and fused (``TOL_PP_LOSS``, ``TOL_PP_TRAIN``), 2 warm-up and 5
+   timed steps each: ms/step, tokens/s, peak memory, launches; a planted
+   fault (each step trained on the first microbatch alone) beyond
+   ``TOL_PP_TRAIN``.
+12. vision: ResNet-50 at full width (1000 classes, 224x224), the model of
    ``python -m bluefog_tpu_torch.bench``. A check of the bf16
    ``channels_last`` model against the same weights in f32 on the card
    (logits, every gradient, the BN buffers after one train-mode forward;
@@ -250,6 +269,52 @@ TOL_EP = 1e-2
 # (b) measured 1.3e-7 (one f32 ulp of the loss): at E=1 the dispatch is a
 # copy and the expert the dense FFN on twice the rows
 TOL_EP_LOSS = 1e-6
+
+# the parallel phase, at the headline width (bf16 compute, f32 parameters,
+# flash attention). (a) A virtual tensor-parallel group of TP_N ranks: each
+# holds its slices (4 heads, d_ff 2048, vocab 8192, embedding features 512),
+# and the port's step functions (``tensor.tp_logits`` over a list of the
+# ranks' models) run them in lock-step, a sum over the list standing for
+# each all-reduce and a cat for each all-gather, on B=1 x SEQ tokens. The
+# logits and every rank's gradient of every parameter (sum of the ranks'
+# losses, each the dense loss) against the dense flash model's, sliced to
+# the rank, as ``nerr`` within TOL_TP: each row-parallel product is TP_N
+# bf16 partial products summed and rounded again where the dense model
+# rounds one product. TP_N * LAYERS launches of each kernel (at H = 4) per
+# forward and backward. Planted faults: qkv sliced as contiguous rows (not
+# each rank's heads), and one rank's row-parallel partial left out of the
+# sum. (b) A virtual pipeline of PP_N stages, one layer each, over PP_N
+# sequences of SEQ in PP_N microbatches of one: the port's tick schedule
+# (``pipeline.pp_schedule`` / ``pp_fused_schedule``) with the handoff a
+# roll of the list, against the dense model on the same sequences: logits
+# and every stage's and ``rest``'s gradient within TOL_PP, the plain and
+# fused losses against ``lm_loss`` within TOL_PP_LOSS (relative); the
+# handoff rolled the wrong way must land beyond TOL_PP. (c) World 1 on
+# NCCL: ``tp_loss_fn`` under plain Adam on the headline batch, each loss
+# bit-identical to plain Adam on ``lm_loss`` from the same seed (n = 1: the
+# same ops); ``pp_train_step_fn`` on PP_TRAIN_B x SEQ with PP_TRAIN_M
+# microbatches, plain and fused, against plain Adam on ``lm_loss``: the
+# first loss (same weights; the microbatch mean reassociates) within
+# TOL_PP_LOSS, every loss within TOL_PP_TRAIN (relative): the weight
+# gradients are bf16 products per microbatch summed in f32, where the dense
+# step sums both sequences inside one bf16 product, and Adam carries the
+# difference into the later steps. The planted fault (each step trained on
+# the first microbatch alone, its loss read over the whole batch) must land
+# beyond TOL_PP_TRAIN.
+TP_N = 4
+PP_N = 4
+PP_TRAIN_B = 2
+PP_TRAIN_M = 2
+TP_FAULTS = ("contiguous_qkv", "drop_partial")
+PP_FAULTS = ("handoff_backwards",)
+# predicted before their first run on the card; measured on an H100
+# (PERF.md): logits 8.4e-3, gradients 1.0e-2 (TP); logits 0, gradients
+# 4.6e-3, losses 0 (PP); the PP training losses within 5.1e-4, the first
+# within 8.8e-8 (about one f32 rounding of a loss near 10.9)
+TOL_TP = 5e-2
+TOL_PP = 2e-2
+TOL_PP_LOSS = 1e-6
+TOL_PP_TRAIN = 5e-3
 
 # the optimizers phase. (a) every op at world 1 against its closed form in
 # plain torch on OPS_SHAPE, exactly. (c) and (d): the largest over the
@@ -1617,6 +1682,479 @@ def ep_train(bf, fl, torch) -> dict:
             "dense_peak_bytes": base["peak"]}
 
 
+def _tp_models(torch, dense, n: int, fault=None) -> list:
+    """The virtual group's models: rank r's copy of ``dense`` holding its
+    slices (``tensor.tp_layout`` and ``shard_of``, as ``tp_shard_params``
+    cuts them). ``fault="contiguous_qkv"`` gives rank r the r-th contiguous
+    rows of ``qkv`` instead of its heads' q, k and v rows."""
+    import copy
+
+    from bluefog_tpu_torch.parallel import tensor as tp
+
+    layout = tp.tp_layout(dense, n)
+    models = []
+    for r in range(n):
+        m = copy.deepcopy(dense)
+        with torch.no_grad():
+            for name, dim in layout.items():
+                if dim is None:
+                    continue
+                mod, leaf = tp._owner(m, name)
+                full = getattr(mod, leaf)
+                part = tp.shard_of(name, full, dim, r, n)
+                if fault == "contiguous_qkv" and name.endswith("qkv.weight"):
+                    w = full.shape[0] // n
+                    part = full[r * w:(r + 1) * w]
+                setattr(mod, leaf, torch.nn.Parameter(part.clone()))
+        m.tp_ranks = n
+        m.zero_grad(set_to_none=True)
+        models.append(m)
+    return models, layout
+
+
+def _tp_loss(torch, logits: list, targets):
+    """The sum of the virtual ranks' losses, each the dense ``lm_loss``."""
+    import torch.nn.functional as F
+
+    return sum(F.cross_entropy(lg.reshape(-1, lg.shape[-1]),
+                               targets.reshape(-1)) for lg in logits)
+
+
+def virtual_tp(bf, fl, torch, dense, batch, n: int = TP_N,
+               timed: bool = False) -> dict:
+    """(a) The virtual tensor-parallel group of ``n`` ranks against
+    ``dense``: logits and every rank's gradient (``nerr`` against the dense
+    gradient sliced to the rank, the largest over ranks and parameters),
+    the launch counts of one forward and backward, the planted faults, and
+    with ``timed`` each direction's CUDA-event ms summed over the virtual
+    ranks beside the dense model's."""
+    from bluefog_tpu_torch.parallel import tensor as tp
+
+    toks, tgts = batch
+    dense.zero_grad(set_to_none=True)
+    with torch.no_grad():
+        want = dense(toks)
+    bf.models.lm_loss(dense, batch).backward()
+    models, layout = _tp_models(torch, dense, n)
+    fl.reset_launch_counts()
+    logits = tp.tp_logits(models, [toks] * n)
+    _tp_loss(torch, logits, tgts).backward()
+    launches = dict(fl.launch_counts)
+    errors = {"logits": max(nerr(lg.detach(), want.detach())
+                            for lg in logits)}
+    worst = (0.0, None)
+    for r, m in enumerate(models):
+        for name, dim in layout.items():
+            ref = dense.get_parameter(name).grad
+            if dim is not None:
+                ref = tp.shard_of(name, ref, dim, r, n)
+            e = nerr(m.get_parameter(name).grad, ref)
+            worst = max(worst, (e, name))
+    errors["grad"], errors["grad_worst"] = worst
+    del logits
+    planted = {}
+    with torch.no_grad():
+        bad, _ = _tp_models(torch, dense, n, fault="contiguous_qkv")
+        planted["contiguous_qkv"] = nerr(tp.tp_logits(bad, [toks] * n)[0],
+                                         want)
+        del bad
+        reduce = tp.model_reduce
+        tp.model_reduce = lambda xs, group=None: reduce(
+            [torch.zeros_like(xs[0]), *xs[1:]], group)
+        try:
+            planted["drop_partial"] = nerr(
+                tp.tp_logits(models, [toks] * n)[0], want)
+        finally:
+            tp.model_reduce = reduce
+    res = {"errors": errors, "planted": planted, "launches": launches}
+    if timed:
+        res["ms"] = _tp_ms(torch, dense, models, batch, n)
+    return res
+
+
+def _tp_ms(torch, dense, models, batch, n: int) -> dict:
+    from bluefog_tpu_torch.parallel import tensor as tp
+
+    toks, tgts = batch
+
+    def v_fwd():
+        with torch.no_grad():
+            tp.tp_logits(models, [toks] * n)
+
+    def v_both():
+        for m in models:
+            m.zero_grad(set_to_none=True)
+        _tp_loss(torch, tp.tp_logits(models, [toks] * n), tgts).backward()
+
+    def d_fwd():
+        with torch.no_grad():
+            dense(toks)
+
+    def d_both():
+        dense.zero_grad(set_to_none=True)
+        _tp_loss(torch, [dense(toks)], tgts).backward()
+
+    ms = {"virtual fwd": cuda_ms(v_fwd, 5), "virtual fwd+bwd":
+          cuda_ms(v_both, 5), "dense fwd": cuda_ms(d_fwd, 5),
+          "dense fwd+bwd": cuda_ms(d_both, 5)}
+    ms["virtual bwd"] = ms["virtual fwd+bwd"] - ms["virtual fwd"]
+    ms["dense bwd"] = ms["dense fwd+bwd"] - ms["dense fwd"]
+    return ms
+
+
+def tp_check(bf, fl, torch, dev) -> dict:
+    """(a) at the headline width: the limits, the launches, the planted
+    faults and the times."""
+    dense = headline_model(bf, torch, dev, fl.flash_attention)
+    res = virtual_tp(bf, fl, torch, dense, headline_batch(torch, dev),
+                     timed=True)
+    e = res["errors"]
+    log(f"tp check (virtual group of {TP_N}, {16 // TP_N} heads, d_ff "
+        f"{8192 // TP_N}, vocab {32768 // TP_N} each, B=1 x {SEQ}, bf16, "
+        f"vs the dense flash model): logits={e['logits']:.3e} "
+        f"grad={e['grad']:.3e} (worst {e['grad_worst']}); limit "
+        f"TOL_TP={TOL_TP}")
+    log(f"tp check launches (one forward and backward): {res['launches']}")
+    for f, v in res["planted"].items():
+        log(f"tp check, planted {f}: logits={v:.3e}")
+    log("tp ms (CUDA events, summed over the virtual ranks): "
+        + " ".join(f"{k}={v:.4f}" for k, v in res["ms"].items()))
+    if not (e["logits"] <= TOL_TP and e["grad"] <= TOL_TP):
+        raise RuntimeError(f"the virtual TP group disagrees with the dense "
+                           f"model beyond TOL_TP={TOL_TP}: {e}")
+    want = TP_N * LAYERS
+    if any(c != want for c in res["launches"].values()):
+        raise RuntimeError(f"tp check: expected {want} launches of each "
+                           f"kernel, got {res['launches']}")
+    for f, v in res["planted"].items():
+        if v <= TOL_TP:
+            raise RuntimeError(f"the tp check missed the planted fault "
+                               f"{f}: {v}")
+    return res
+
+
+def _pp_leaves(torch, dense, n: int):
+    """Fresh leaves for a virtual pipeline of ``n`` stages: each stage's
+    ``[1, per, ...]`` chunk and the rest, from ``dense``'s weights."""
+    from bluefog_tpu_torch.parallel import pipeline as pp
+
+    sd = {k: v.detach() for k, v in dense.state_dict().items()}
+    stacked, rest = pp.pp_stack_params(sd, n)
+    stages = [{k: v[s:s + 1].clone().requires_grad_()
+               for k, v in stacked.items()} for s in range(n)]
+    return stages, {k: v.clone().requires_grad_() for k, v in rest.items()}
+
+
+def _pp_logits(dense, stages, rest, toks, handoff):
+    """The virtual pipeline's plain forward: every sequence of ``toks`` a
+    microbatch, the embedding and the head around ``pp_schedule``."""
+    from bluefog_tpu_torch.parallel import pipeline as pp
+
+    n = len(stages)
+    x = pp._module(dense.embed, "weight", rest["embed.weight"], toks)
+    mb = x.reshape((x.shape[0], 1) + tuple(x.shape[1:]))
+    outs = pp.pp_schedule(dense, stages, list(range(n)), n, handoff, mb)
+    x = pp._module(dense.final_norm, "scale", rest["final_norm.scale"],
+                   outs[-1].reshape(x.shape))
+    return pp._module(dense.lm_head, "weight", rest["lm_head.weight"],
+                      x).float()
+
+
+def _pp_fused(torch, dense, stages, rest, toks, tgts):
+    from bluefog_tpu_torch.parallel import pipeline as pp
+
+    n = len(stages)
+    parts = pp.pp_fused_schedule(dense, stages, list(range(n)), n,
+                                 pp.virtual_handoff, rest, toks[:, None],
+                                 tgts[:, None])
+    return torch.stack(parts).sum() / toks.shape[0]
+
+
+def _pp_grad_err(dense, stages, rest) -> tuple:
+    per = next(iter(stages[0].values())).shape[1]
+    worst = (0.0, None)
+    for s, st in enumerate(stages):
+        for k, t in st.items():
+            for j in range(per):
+                ref = dense.get_parameter(f"block_{s * per + j}.{k}").grad
+                worst = max(worst, (nerr(t.grad[0, j], ref),
+                                    f"block_{s * per + j}.{k}"))
+    for k, t in rest.items():
+        worst = max(worst, (nerr(t.grad, dense.get_parameter(k).grad), k))
+    return worst
+
+
+def _zero(stages, rest) -> None:
+    for t in [*(v for st in stages for v in st.values()), *rest.values()]:
+        t.grad = None
+
+
+def virtual_pp(bf, fl, torch, dense, batch, n: int = PP_N,
+               timed: bool = False) -> dict:
+    """(b) The virtual pipeline of ``n`` stages against ``dense`` on the
+    sequences of ``batch`` (one microbatch each): logits, gradients, the
+    plain and fused losses, the launches of one plain forward and
+    backward, the planted fault; with ``timed`` the ms and peak memory of
+    each form's forward and backward."""
+    import torch.nn.functional as F
+    from bluefog_tpu_torch.parallel import pipeline as pp
+
+    toks, tgts = batch
+    dense.zero_grad(set_to_none=True)
+    want_loss = bf.models.lm_loss(dense, batch)
+    want_loss.backward()
+    stages, rest = _pp_leaves(torch, dense, n)
+    fl.reset_launch_counts()
+    logits = _pp_logits(dense, stages, rest, toks, pp.virtual_handoff)
+    loss = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                           tgts.reshape(-1))
+    loss.backward()
+    launches = dict(fl.launch_counts)
+    with torch.no_grad():
+        want = dense(toks)
+        errors = {"logits": nerr(logits.detach(), want)}
+        del logits
+        # each stage handed the output of the stage after it (zeros where
+        # that one was idle)
+        zero = torch.zeros((1, toks.shape[1], dense.embed.weight.shape[1]),
+                           dtype=dense.dtype, device=toks.device)
+        planted = {"handoff_backwards": nerr(_pp_logits(
+            dense, stages, rest, toks,
+            lambda xs, step: [zero if x is None else x for x in
+                              pp.virtual_handoff(xs, -step)]), want)}
+        del want
+    errors["grad"], errors["grad_worst"] = _pp_grad_err(dense, stages, rest)
+    _zero(stages, rest)
+    fused = _pp_fused(torch, dense, stages, rest, toks, tgts)
+    fused.backward()
+    errors["fused_grad"], errors["fused_grad_worst"] = _pp_grad_err(
+        dense, stages, rest)
+    wl = float(want_loss.detach())
+    losses = {"dense": wl, "plain": float(loss.detach()),
+              "fused": float(fused.detach())}
+    errors["plain_loss"] = abs(losses["plain"] - wl) / abs(wl)
+    errors["fused_loss"] = abs(losses["fused"] - wl) / abs(wl)
+    res = {"errors": errors, "planted": planted, "launches": launches,
+           "losses": losses}
+    if timed:
+        res["ms"], res["peak_bytes"] = _pp_ms(torch, dense, stages, rest,
+                                              batch)
+    return res
+
+
+def _pp_ms(torch, dense, stages, rest, batch):
+    """CUDA-event ms of one forward and backward of each form (and of the
+    dense model), with each one's peak memory."""
+    import torch.nn.functional as F
+    from bluefog_tpu_torch.parallel import pipeline as pp
+
+    toks, tgts = batch
+
+    def plain():
+        _zero(stages, rest)
+        lg = _pp_logits(dense, stages, rest, toks, pp.virtual_handoff)
+        F.cross_entropy(lg.reshape(-1, lg.shape[-1]),
+                        tgts.reshape(-1)).backward()
+
+    def fused():
+        _zero(stages, rest)
+        _pp_fused(torch, dense, stages, rest, toks, tgts).backward()
+
+    def whole():
+        dense.zero_grad(set_to_none=True)
+        lg = dense(toks)
+        F.cross_entropy(lg.reshape(-1, lg.shape[-1]),
+                        tgts.reshape(-1)).backward()
+
+    ms, peak = {}, {}
+    for key, fn in (("plain", plain), ("fused", fused), ("dense", whole)):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        peak[key] = torch.cuda.max_memory_allocated()
+        ms[key] = cuda_ms(fn, 3, warmup=0)
+    return ms, peak
+
+
+def pp_check(bf, fl, torch, dev) -> dict:
+    """(b) at the headline width, one layer per stage."""
+    dense = headline_model(bf, torch, dev, fl.flash_attention)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    toks = torch.randint(0, 32768, (PP_N, SEQ), generator=gen, device=dev)
+    res = virtual_pp(bf, fl, torch, dense, (toks, toks.roll(-1, dims=1)),
+                     timed=True)
+    e = res["errors"]
+    log(f"pp check (virtual pipeline of {PP_N} stages, {LAYERS // PP_N} "
+        f"layer(s) each, {PP_N} microbatches of 1 x {SEQ}, bf16, vs the "
+        f"dense flash model): logits={e['logits']:.3e} grad={e['grad']:.3e} "
+        f"(worst {e['grad_worst']}) fused grad={e['fused_grad']:.3e}; limit "
+        f"TOL_PP={TOL_PP}")
+    log(f"pp check losses: {res['losses']}; relative plain="
+        f"{e['plain_loss']:.3e} fused={e['fused_loss']:.3e} (limit "
+        f"TOL_PP_LOSS={TOL_PP_LOSS})")
+    log(f"pp check launches (one plain forward and backward): "
+        f"{res['launches']}")
+    for f, v in res["planted"].items():
+        log(f"pp check, planted {f}: logits={v:.3e}")
+    log("pp ms (CUDA events, forward and backward): "
+        + " ".join(f"{k}={v:.3f}" for k, v in res["ms"].items())
+        + "; peak_mem_GiB: " + " ".join(
+            f"{k}={v / 2**30:.3f}" for k, v in res["peak_bytes"].items()))
+    bad = {k: e[k] for k in ("logits", "grad", "fused_grad")
+           if not e[k] <= TOL_PP}
+    bad.update({k: e[k] for k in ("plain_loss", "fused_loss")
+                if not e[k] <= TOL_PP_LOSS})
+    if bad:
+        raise RuntimeError(f"the virtual pipeline disagrees with the dense "
+                           f"model: {bad}")
+    fwd = PP_N * LAYERS            # M microbatches x L layers
+    expect = {"flash_fwd": 2 * fwd, "flash_bwd_dq": fwd,
+              "flash_bwd_dkv": fwd}
+    if res["launches"] != expect:
+        raise RuntimeError(f"pp check: expected launches {expect}, got "
+                           f"{res['launches']}")
+    for f, v in res["planted"].items():
+        if v <= TOL_PP:
+            raise RuntimeError(f"the pp check missed the planted fault "
+                               f"{f}: {v}")
+    return res
+
+
+def _pp_one_microbatch(torch, model, batch, params, optimizer,
+                       pp_train_init, pp_train_step_fn, pp_loss_fn) -> list:
+    """The planted fault of (c): ``WARMUP + STEPS`` pipelined steps, each
+    trained on the batch's first microbatch alone; each step's loss is
+    read over the whole batch (``pp_loss_fn``, no gradient) before it."""
+    stage, rest, adam = pp_train_init(model, None, params, optimizer)
+    step = pp_train_step_fn(model, None, adam, 1)
+    whole = pp_loss_fn(model, None, PP_TRAIN_M)
+    mb = batch[0].shape[0] // PP_TRAIN_M
+    losses = []
+    for _ in range(WARMUP + STEPS):
+        with torch.no_grad():
+            losses.append(float(whole(stage, rest, batch)))
+        step(stage, rest, tuple(t[:mb] for t in batch))
+    del stage, rest, adam
+    torch.cuda.empty_cache()
+    return losses
+
+
+def parallel_train(bf, fl, torch) -> dict:
+    """(c) World 1 on NCCL: ``tp_loss_fn`` and ``pp_train_step_fn`` (plain
+    and fused) at the headline width, each beside plain Adam on
+    ``lm_loss`` from the same seed on the same batch."""
+    import functools
+    import types
+
+    from bluefog_tpu_torch.parallel import (pp_loss_fn, pp_train_init,
+                                            pp_train_step_fn, tp_loss_fn,
+                                            tp_shard_params)
+
+    bf.init()
+    out = {}
+    try:
+        dev = torch.device("cuda", torch.cuda.current_device())
+        batch = headline_batch(torch, dev)
+        model = headline_model(bf, torch, dev, fl.flash_attention)
+        out["dense"] = _train_steps(fl, torch, _plain_adam(
+            model, bf.models.lm_loss), batch)
+        del model
+        model = tp_shard_params(
+            headline_model(bf, torch, dev, fl.flash_attention))
+        out["tp"] = _train_steps(fl, torch, _plain_adam(
+            model, tp_loss_fn(model)), batch)
+        del model
+        gen = torch.Generator(device=dev).manual_seed(3)
+        toks = torch.randint(0, 32768, (PP_TRAIN_B, SEQ), generator=gen,
+                             device=dev)
+        pbatch = (toks, toks.roll(-1, dims=1))
+        model = headline_model(bf, torch, dev, fl.flash_attention)
+        out["pp dense"] = _train_steps(fl, torch, _plain_adam(
+            model, bf.models.lm_loss), pbatch)
+        for key, fused in (("pp", False), ("pp fused", True)):
+            params = headline_model(bf, torch, dev,
+                                    fl.flash_attention).state_dict()
+            stage, rest, adam = pp_train_init(
+                model, None, params,
+                functools.partial(torch.optim.Adam, lr=1e-3))
+            del params
+            step = pp_train_step_fn(model, None, adam, PP_TRAIN_M, fused)
+            opt = types.SimpleNamespace(
+                step=lambda b, step=step, stage=stage, rest=rest:
+                {"loss": step(stage, rest, b)})
+            out[key] = _train_steps(fl, torch, opt, pbatch)
+            del stage, rest, adam
+            torch.cuda.empty_cache()
+        planted = _pp_one_microbatch(torch, model, pbatch, headline_model(
+            bf, torch, dev, fl.flash_attention).state_dict(), functools.partial(
+                torch.optim.Adam, lr=1e-3), pp_train_init, pp_train_step_fn,
+            pp_loss_fn)
+    finally:
+        bf.shutdown()
+    res = {}
+    for key, run in out.items():
+        tokens = (PP_TRAIN_B if key.startswith("pp") else 1) * SEQ
+        dt = run["dt"]
+        ref = out["pp dense" if key.startswith("pp") else "dense"]["losses"]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(run["losses"], ref))
+        log(f"parallel train ({key}, world 1, plain Adam, B="
+            f"{tokens // SEQ} x {SEQ}): ms/step={dt * 1e3:.3f} tokens/s="
+            f"{tokens / dt:.1f} peak_mem_GiB={run['peak'] / 2**30:.3f}")
+        log(f"parallel train ({key}) losses: "
+            + " ".join(f"{x:.5f}" for x in run["losses"])
+            + f"; largest relative difference from plain Adam on lm_loss "
+            f"{rel:.3e}")
+        log(f"parallel train ({key}) launches: {run['counts']}")
+        res[key] = {"counts": run["counts"], "ms_per_step": dt * 1e3,
+                    "tokens_per_s": tokens / dt, "peak_bytes": run["peak"],
+                    "losses": run["losses"], "vs_dense": rel}
+    _check_training("parallel train (tp)", out["tp"], LAYERS)
+    if res["tp"]["vs_dense"] != 0.0:
+        raise RuntimeError(f"tp_loss_fn at n=1 is not bit-identical to "
+                           f"lm_loss: {res['tp']['losses']} vs "
+                           f"{res['dense']['losses']}")
+    per_step = PP_TRAIN_M * LAYERS
+    ref_pp = out["pp dense"]["losses"]
+    for key in ("pp", "pp fused"):
+        # K1 runs twice per layer and microbatch: forward and recompute
+        run = dict(out[key], counts={k: v // (2 if k == "flash_fwd" else 1)
+                                     for k, v in out[key]["counts"].items()})
+        _check_training(f"parallel train ({key})", run, per_step)
+        first = abs(run["losses"][0] - ref_pp[0]) / abs(ref_pp[0])
+        res[key]["first_vs_dense"] = first
+        log(f"parallel train ({key}): first loss relative {first:.3e} "
+            f"(limit TOL_PP_LOSS={TOL_PP_LOSS}), all "
+            f"{res[key]['vs_dense']:.3e} (limit TOL_PP_TRAIN={TOL_PP_TRAIN})")
+        if not (first <= TOL_PP_LOSS
+                and res[key]["vs_dense"] <= TOL_PP_TRAIN):
+            raise RuntimeError(f"{key}: losses {res[key]['losses']} differ "
+                               f"from plain Adam's {ref_pp}")
+    rels = [abs(a - b) / abs(b) for a, b in zip(planted, ref_pp)]
+    first, rel = rels[0], max(rels)
+    res["pp planted"] = {"losses": planted, "first_vs_dense": first,
+                         "vs_dense": rel}
+    log("parallel train, planted one_microbatch (each step trained on the "
+        "first microbatch alone): losses " + " ".join(
+            f"{x:.5f}" for x in planted) + f"; first relative {first:.3e}, "
+        f"all {rel:.3e} (limit TOL_PP_TRAIN={TOL_PP_TRAIN})")
+    if rel <= TOL_PP_TRAIN:
+        raise RuntimeError(f"the pp training check missed the planted "
+                           f"fault one_microbatch: {rel}")
+    return res
+
+
+def parallel(bf, fl, torch, dev) -> dict:
+    """The parallel phase (a)-(c)."""
+    res = {"tp_check": tp_check(bf, fl, torch, dev)}
+    torch.cuda.empty_cache()
+    res["pp_check"] = pp_check(bf, fl, torch, dev)
+    torch.cuda.empty_cache()
+    res["train"] = parallel_train(bf, fl, torch)
+    return res
+
+
 def _torchvision_names(model) -> dict:
     """The port's ResNet ``state_dict`` under torchvision's names (the
     inverse of ``resnet_from_torch``'s renaming), for a checkpoint in
@@ -2025,6 +2563,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     experts["examples"] = examples_check(bf, torch, dev)
     torch.cuda.empty_cache()
+    par = parallel(bf, fl, torch, dev)
+    torch.cuda.empty_cache()
     vision = dict(check=vision_check(bf, torch, dev))
     torch.cuda.empty_cache()
     vision["train"] = vision_train(bf, torch, card)
@@ -2043,14 +2583,23 @@ def main() -> int:
                 f"virtual ring of {RING_N}": ctx["ring_check"]["launches"][
                     name],
                 "flash ring LM": ctx["ring_train"]["counts"][name],
-                "expert-parallel MoE LM": experts["train"]["counts"][name]},
+                "expert-parallel MoE LM": experts["train"]["counts"][name],
+                f"virtual TP group of {TP_N}": par["tp_check"]["launches"][
+                    name],
+                f"virtual pipeline of {PP_N}": par["pp_check"]["launches"][
+                    name],
+                "tp_loss_fn LM": par["train"]["tp"]["counts"][name],
+                "pp_train_step_fn LM": par["train"]["pp"]["counts"][name],
+                "pp_train_step_fn LM, fused": par["train"]["pp fused"][
+                    "counts"][name]},
         })
     os.makedirs(os.path.dirname(OUT), exist_ok=True)
     with open(OUT, "w") as f:
         json.dump({"card": card, "kernels": kernels, "train": run,
                    "context": ctx, "optimizers": opts, "ce": ce,
                    "lm_bench": lm_bench_runs,
-                   "moe": moe, "experts": experts, "vision": vision}, f,
+                   "moe": moe, "experts": experts, "parallel": par,
+                   "vision": vision}, f,
                   indent=1)
     log(f"wall: {time.perf_counter() - t_start:.1f} s after the card check")
     log(json.dumps({"kernels": kernels}))

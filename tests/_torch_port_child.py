@@ -673,6 +673,123 @@ def _optimization(bf, torch, rank: int, world: int, inp) -> dict:
     return out
 
 
+def _lm(bf, torch, inp, prefix: str):
+    """The f32 ``TransformerLM`` of ``inp``'s ``<prefix>cfg`` with the flax
+    weights ``<prefix>p:<path>``, dense attention, on the CPU."""
+    from bluefog_tpu_torch.utils import params_from_jax
+
+    vocab, layers, heads, d_model, d_ff = (int(v) for v in
+                                           inp[prefix + "cfg"])
+    model = bf.models.TransformerLM(
+        vocab_size=vocab, num_layers=layers, num_heads=heads,
+        d_model=d_model, d_ff=d_ff, device="cpu")
+    tag = prefix + "p:"
+    params = {k[len(tag):]: v for k, v in inp.items() if k.startswith(tag)}
+    model.load_state_dict(params_from_jax(_unflatten(params)))
+    return model
+
+
+def _tensor(bf, torch, rank: int, world: int, inp) -> dict:
+    """``tp_shard_params``/``tp_apply``/``tp_loss_fn`` over the world as
+    one model group (``main``, and ``ff62`` whose d_ff does not divide 4),
+    then as 2 x 2 (data x model): model groups {0, 1}, {2, 3}, data groups
+    {0, 2}, {1, 3}, rank r at data index r // 2 and model index r % 2."""
+    import torch.distributed as dist
+
+    from bluefog_tpu_torch import parallel as P
+
+    groups = {ranks: dist.new_group(list(ranks))
+              for ranks in ((0, 1), (2, 3), (0, 2), (1, 3))}
+    cases = {"main": ("", None, None, slice(None)),
+             "ff62": ("ff62:", None, None, slice(None)),
+             "dm": ("", groups[(0, 1) if rank < 2 else (2, 3)],
+                    groups[(0, 2) if rank % 2 == 0 else (1, 3)],
+                    slice(2 * (rank // 2), 2 * (rank // 2) + 2))}
+    out, flags, models = {}, {}, {}
+    for case, (prefix, group, data_group, rows) in cases.items():
+        model = models[case] = P.tp_shard_params(_lm(bf, torch, inp, prefix),
+                                                 group)
+        toks = torch.from_numpy(inp["tokens"][rows]).long()
+        tgts = torch.from_numpy(inp["targets"][rows]).long()
+        with torch.no_grad():
+            out[f"{case}:logits"] = P.tp_apply(model, toks, group)
+        loss = P.tp_loss_fn(model, group, data_group)(model, (toks, tgts))
+        loss.backward()
+        out[f"{case}:loss"] = loss.detach()
+        for name, p in model.named_parameters():
+            out[f"{case}:w:{name}"] = p.detach()
+            out[f"{case}:g:{name}"] = p.grad
+    # a model sharded over the world refuses a group of another size
+    flags["wrong_group"] = _raises(
+        ValueError, lambda: P.tp_apply(
+            models["main"], toks, groups[(0, 1) if rank < 2 else (2, 3)]),
+        "sharded over 4 ranks")
+    out = {k: v.detach().float().numpy() for k, v in out.items()}
+    out.update({f"flag:{k}": np.array(v) for k, v in flags.items()})
+    return out
+
+
+def _pipeline(bf, torch, rank: int, world: int, inp) -> dict:
+    """``pp_apply`` (4 stages x 2 microbatches over the world, then 2 x 4
+    over the pipelines {0, 1} and {2, 3}), ``pp_forward_fn`` reused, the
+    plain and fused losses and their gradients, the bad-count errors, and
+    the training curve of ``pp_train_step_fn`` (2 stages, plain Adam)."""
+    import functools
+
+    import torch.distributed as dist
+
+    from bluefog_tpu_torch import parallel as P
+
+    pairs = {ranks: dist.new_group(list(ranks)) for ranks in ((0, 1), (2, 3))}
+    pair = pairs[(0, 1) if rank < 2 else (2, 3)]
+    model = _lm(bf, torch, inp, "")
+    sd = {k: v.detach() for k, v in model.state_dict().items()}
+    toks = torch.from_numpy(inp["tokens"]).long()
+    tgts = torch.from_numpy(inp["targets"]).long()
+    out, flags = {}, {}
+    with torch.no_grad():
+        out["apply_4_2"] = P.pp_apply(model, sd, toks, n_micro=2)
+        out["apply_2_4"] = P.pp_apply(model, sd, toks, pair, n_micro=4)
+    stacked, rest = P.pp_stack_params(sd, 4)
+    stage = {k: v.clone().requires_grad_()
+             for k, v in P.pp_place_params(stacked).items()}
+    rest = {k: v.clone().requires_grad_() for k, v in rest.items()}
+    fwd = P.pp_forward_fn(model, n_micro=2)
+    with torch.no_grad():
+        out["fwd_1"] = fwd(stage, rest, toks)
+        out["fwd_2"] = fwd(stage, rest, toks)
+    for key, fn in (("plain", P.pp_loss_fn),
+                    ("fused", P.pipeline._pp_fused_loss)):
+        loss = fn(model, n_micro=2)(stage, rest, (toks, tgts))
+        loss.backward()
+        out[f"{key}:loss"] = loss.detach()
+        for k, t in [*stage.items(), *rest.items()]:
+            out[f"{key}:g:{k}"] = t.grad
+            t.grad = None
+    flags["bad_micro"] = _raises(
+        ValueError, lambda: P.pp_apply(model, sd, toks, n_micro=3),
+        "microbatch")
+    flags["bad_layers"] = _raises(
+        ValueError, lambda: P.pp_stack_params(sd, 3), "multiple of")
+    two = _lm(bf, torch, inp, "train:")
+    batch = (torch.from_numpy(inp["train_tokens"]).long(),
+             torch.from_numpy(inp["train_targets"]).long())
+    for key, fused in (("plain", False), ("fused", True)):
+        stage2, rest2, adam = P.pp_train_init(
+            two, pair, {k: v.detach() for k, v in two.state_dict().items()},
+            functools.partial(torch.optim.Adam, lr=1e-2))
+        step = P.pp_train_step_fn(two, pair, adam, n_micro=2,
+                                  fused_loss=fused)
+        out[f"curve_{key}"] = torch.stack(
+            [step(stage2, rest2, batch) for _ in range(int(inp["steps"]))])
+        with torch.no_grad():
+            out[f"curve_{key}_logits"] = P.pp_forward_fn(
+                two, pair, n_micro=2)(stage2, rest2, batch[0])
+    out = {k: v.detach().float().numpy() for k, v in out.items()}
+    out.update({f"flag:{k}": np.array(v) for k, v in flags.items()})
+    return out
+
+
 def _examples(tmp_dir: str) -> None:
     """Every example of ``bluefog_tpu_torch/examples/`` (but the
     long-context one) through its entry point, in turn, in this rank of a
@@ -725,7 +842,8 @@ def main() -> None:
            "subgroup": _subgroup, "collectives": _collectives,
            "optimizers": _optimizers, "context": _context,
            "checkpoint": _checkpoint, "expert": _expert,
-           "optimization": _optimization}[mode](bf, torch, rank, world, inp)
+           "optimization": _optimization, "tensor": _tensor,
+           "pipeline": _pipeline}[mode](bf, torch, rank, world, inp)
     bf.barrier()
     bf.shutdown()
     np.savez(os.path.join(tmp_dir, f"out_{rank}.npz"), **out)

@@ -151,6 +151,31 @@ def test_window_kinds_raise_with_the_roadmap_item(tmp_path):
         port_resnet.train(_resnet_args(tmp_path, dist_optimizer="win_put"))
 
 
+def test_optimization_run_follows_the_runtime_device():
+    """``optimization.run`` without ``device`` runs where ``bf.init`` put
+    the runtime (the card unless the caller asked for the CPU), not on the
+    CPU regardless."""
+    import inspect
+
+    import torch
+
+    import bluefog_tpu_torch as bft
+    from bluefog_tpu_torch.examples import optimization as port_opt
+    from bluefog_tpu_torch.runtime.state import _global_state
+
+    assert inspect.signature(port_opt.run).parameters["device"].default \
+        is None
+    bft.init(device="cpu")
+    try:
+        w, w_opt, mse = port_opt.run(method="gradient_tracking",
+                                     task="linear_regression", maxite=40)
+        want = _global_state().device
+    finally:
+        bft.shutdown()
+    assert w.device == w_opt.device == want == torch.device("cpu")
+    assert mse[-1] < mse[0]
+
+
 @pytest.fixture(scope="module")
 def examples_run(tmp_path_factory):
     """rank 0's output of every example in one torchrun world of 4."""

@@ -103,7 +103,12 @@ _PARALLEL_SLICE_NAMES = ["ring_attention", "ring_attention_shard",
                          # expert parallelism (Queue 1, item 7)
                          "switch_dispatch", "ep_apply", "ep_place_params",
                          "moe_param_specs", "ep_lm_init", "ep_lm_apply",
-                         "ep_lm_loss_fn"]
+                         "ep_lm_loss_fn",
+                         # tensor and pipeline parallelism (Queue 1, item 7)
+                         "LM_TP_RULES", "tp_shard_params", "tp_apply",
+                         "tp_loss_fn", "pp_stack_params", "pp_place_params",
+                         "pp_forward_fn", "pp_loss_fn", "pp_train_init",
+                         "pp_train_step_fn", "pp_apply"]
 _CHECKPOINT_NAMES = ["save", "save_async", "wait_pending", "restore",
                      "read_meta", "latest_path"]
 
@@ -138,20 +143,16 @@ def test_port_parallel_and_checkpoint_names_are_jax_names():
 
 # ``parallel`` and ``utils`` against the JAX package's: the port's own
 # names (the flash backward and its launch counters, the JAX-weights loader),
-# the names absent on purpose (``ep_mesh`` and ``sequence_sharding`` build
-# or place on a JAX device mesh, which the port has not), and those of the
-# tensor and pipeline axes still to port (ROADMAP Queue 1, item 7)
+# and the names absent on purpose (``ep_mesh``, ``tp_mesh``, ``pp_mesh`` and
+# ``sequence_sharding`` build or place on a JAX device mesh, which the port
+# has not); none is left to port
 _PORT_ONLY = {"parallel": {"flash_block_bwd", "launch_counts",
                            "reset_launch_counts"},
               "utils": {"params_from_jax"}}
-_ABSENT_ON_PURPOSE = {"parallel": {"ep_mesh", "sequence_sharding"},
+_ABSENT_ON_PURPOSE = {"parallel": {"ep_mesh", "tp_mesh", "pp_mesh",
+                                   "sequence_sharding"},
                       "utils": set()}
-_NOT_YET = {"parallel": {"LM_TP_RULES", "tp_apply", "tp_loss_fn", "tp_mesh",
-                         "tp_shard_params", "pp_apply", "pp_forward_fn",
-                         "pp_loss_fn", "pp_mesh", "pp_place_params",
-                         "pp_stack_params", "pp_train_init",
-                         "pp_train_step_fn"},
-             "utils": set()}
+_NOT_YET = {"parallel": set(), "utils": set()}
 
 
 @pytest.mark.parametrize("module", ["parallel", "utils"])
@@ -188,6 +189,20 @@ _NEEDS_INIT = {
         q[..., 0, :]),
     "MoETransformerLM(expert_axis)": lambda q: bft.models.MoETransformerLM(
         16, 1, expert_axis="expert", device="cpu"),
+    "tp_shard_params": lambda q: bft.parallel.tp_shard_params(
+        bft.models.TransformerLM(vocab_size=16, device="cpu")),
+    "tp_apply": lambda q: bft.parallel.tp_apply(
+        bft.models.TransformerLM(vocab_size=16, device="cpu"),
+        torch.zeros((1, 8), dtype=torch.long)),
+    "tp_loss_fn": lambda q: bft.parallel.tp_loss_fn(
+        bft.models.TransformerLM(vocab_size=16, device="cpu")),
+    "pp_place_params": lambda q: bft.parallel.pp_place_params({"w": q}),
+    "pp_apply": lambda q: bft.parallel.pp_apply(
+        bft.models.TransformerLM(vocab_size=16, device="cpu"),
+        bft.models.TransformerLM(vocab_size=16, device="cpu").state_dict(),
+        torch.zeros((2, 8), dtype=torch.long)),
+    "pp_loss_fn": lambda q: bft.parallel.pp_loss_fn(
+        bft.models.TransformerLM(vocab_size=16, device="cpu")),
 }
 
 
