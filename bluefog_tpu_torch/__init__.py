@@ -44,6 +44,31 @@ from .runtime.state import (
 )
 from .runtime.handles import poll, synchronize, wait
 
+# timeline (chrome tracing; ``timeline_context`` also names a
+# torch.profiler range)
+from .runtime.timeline import (
+    start_timeline,
+    stop_timeline,
+    timeline_start_activity,
+    timeline_end_activity,
+    timeline_context,
+)
+
+# metrics registry (Prometheus text, packed snapshots, the health view)
+from .runtime import metrics
+
+# flight recorder: always-on black box, postmortem dumps, step attribution
+from .runtime import flight
+from .runtime.flight import step_report
+
+
+def flight_dump(reason: str = "explicit", path=None):
+    """Dump the flight recorder now (the ring's tail and a metrics
+    snapshot) to ``bf_flight_<rank>.json`` under ``BFT_FLIGHT_DIR``, or to
+    ``path``; returns the path written."""
+    return flight.dump(reason=reason, path=path, force=True)
+
+
 # ops
 from .ops import (
     allreduce,

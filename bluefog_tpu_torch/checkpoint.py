@@ -39,7 +39,8 @@ import torch.distributed.checkpoint as dcp
 from torch.distributed.checkpoint.metadata import TensorStorageMetadata
 
 from . import topology as topology_util
-from .runtime.state import _global_state, logger
+from .runtime.logging import logger
+from .runtime.state import _global_state
 
 _META_SUFFIX = ".bf_meta.json"
 

@@ -11,7 +11,9 @@ f32, as the JAX ``_allreduce_fn`` does.
 
 Every op has a ``*_nonblocking`` form that returns a handle for
 ``poll``/``synchronize``/``wait`` (``runtime/handles.py``); the blocking
-form is ``synchronize(nonblocking(...))``, as in the JAX package.
+form is ``synchronize(nonblocking(...))``, as in the JAX package. Each op's
+issue is one timeline activity (``ALLREDUCE``, ``BROADCAST``, ...) under its
+``name``, ``<op>.noname.<k>`` when none is given, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -23,6 +25,8 @@ import torch.distributed as dist
 
 from ..runtime import handles as _handles
 from ..runtime.state import _global_state
+from ..runtime.timeline import timeline_context
+from .neighbors import _auto_name
 from .plan import _acc_dtype
 
 TensorOrSeq = Union[torch.Tensor, Sequence[torch.Tensor]]
@@ -34,13 +38,16 @@ _reduce_scatter_flat = getattr(dist, "reduce_scatter_single", None) or \
     dist.reduce_scatter_tensor
 
 
-def _issue(name: str, tensor: TensorOrSeq, one, into: bool = False) -> int:
-    """Run ``one(x) -> (work, finish)`` on each tensor and register one
-    handle whose result has the structure of ``tensor``; with ``into`` the
-    result is written into ``tensor``, which is returned."""
+def _issue(name: str, activity: str, tensor: TensorOrSeq, one,
+           into: bool = False) -> int:
+    """Run ``one(x) -> (work, finish)`` on each tensor under the timeline
+    activity ``activity`` of ``name`` and register one handle whose result
+    has the structure of ``tensor``; with ``into`` the result is written
+    into ``tensor``, which is returned."""
     single = isinstance(tensor, torch.Tensor)
     xs = [tensor] if single else list(tensor)
-    parts = [one(x) for x in xs]
+    with timeline_context(name, activity):
+        parts = [one(x) for x in xs]
     work = [w for ws, _ in parts for w in ws]
 
     def finalize():
@@ -104,7 +111,8 @@ def _allreduce(tensor, average, is_hierarchical_local, name, into) -> int:
                                async_op=True)
         return [work], lambda: (acc / n if average else acc).to(x.dtype)
 
-    return _issue(name or "allreduce", tensor, one, into)
+    return _issue(_auto_name("allreduce", name), "ALLREDUCE", tensor, one,
+                  into)
 
 
 # ---------------------------------------------------------------------------
@@ -146,7 +154,8 @@ def _broadcast(tensor, root_rank, name, into) -> int:
         return [dist.broadcast(out, src=root_rank, async_op=True)], \
             lambda: out
 
-    return _issue(name or "broadcast", tensor, one, into)
+    return _issue(_auto_name("broadcast", name), "BROADCAST", tensor, one,
+                  into)
 
 
 # ---------------------------------------------------------------------------
@@ -185,7 +194,7 @@ def allgather_nonblocking(tensor: TensorOrSeq,
         out = x.new_empty(shape)
         return [_all_gather_flat(out, x, async_op=True)], lambda: out
 
-    return _issue(name or "allgather", tensor, one)
+    return _issue(_auto_name("allgather", name), "ALLGATHER", tensor, one)
 
 
 def allgather_v(tensor: TensorOrSeq, name: Optional[str] = None):
@@ -229,7 +238,8 @@ def allgather_v_nonblocking(tensor: TensorOrSeq,
         return [work], lambda: torch.cat(
             [out[r * b_max:r * b_max + s] for r, s in enumerate(sizes)])
 
-    return _issue(name or "allgather_v", tensor, one)
+    return _issue(_auto_name("allgather_v", name), "ALLGATHER_V", tensor,
+                  one)
 
 
 # ---------------------------------------------------------------------------
@@ -295,7 +305,8 @@ def pair_gossip_nonblocking(tensor: TensorOrSeq,
 
         return work, finish
 
-    return _issue(name or "pair_gossip", tensor, one)
+    return _issue(_auto_name("pair_gossip", name), "PAIR_GOSSIP", tensor,
+                  one)
 
 
 # ---------------------------------------------------------------------------

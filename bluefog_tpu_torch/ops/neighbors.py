@@ -21,6 +21,7 @@ every process derives the same combine matrix W from the same arguments:
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, List, Optional, Sequence, Union
 
 import numpy as np
@@ -30,10 +31,23 @@ import torch.distributed as dist
 from .. import topology as topology_util
 from ..runtime import handles as _handles
 from ..runtime.state import _global_state
+from ..runtime.timeline import timeline_context
 from .plan import CombinePlan, _acc_dtype, spmd_combine_start
 
 Weights = Union[float, Dict[int, float]]
 NestedWeights = Union[Dict[int, float], Dict[int, Dict[int, float]]]
+
+_op_counter = [0]
+
+
+def _auto_name(prefix: str, name: Optional[str]) -> str:
+    """The op's name in the timeline and its handle: ``name``, else
+    ``<prefix>.noname.<k>`` counting this process's unnamed ops (JAX
+    ``neighbors.py:46-50``)."""
+    if name is not None:
+        return name
+    _op_counter[0] += 1
+    return f"{prefix}.noname.{_op_counter[0]}"
 
 
 def _per_rank(value, size: int, what: str) -> List:
@@ -162,20 +176,25 @@ def _freeze(obj):
 
 def neighbor_plan(self_weight=None, neighbor_weights=None,
                   send_neighbors=None, enable_topo_check: bool = True,
-                  force_gather: Optional[bool] = None) -> CombinePlan:
-    """The (cached) combine plan for one set of weight arguments."""
+                  force_gather: Optional[bool] = None,
+                  op_name: Optional[str] = None) -> CombinePlan:
+    """The (cached) combine plan for one set of weight arguments. A miss
+    under an ``op_name`` is that op's ``PLAN_BUILD`` activity."""
     st = _global_state()
     st.check_initialized()
     key = ("nar", _freeze(send_neighbors), _freeze(self_weight),
            _freeze(neighbor_weights), bool(enable_topo_check), force_gather)
     plan = st._plan_cache.get(key)
     if plan is None:
-        if send_neighbors is None:
-            W = _static_weight_matrix(self_weight, neighbor_weights)
-        else:
-            W = _dynamic_weight_matrix(st.size, send_neighbors, self_weight,
-                                       neighbor_weights, enable_topo_check)
-        plan = CombinePlan(W, force_gather=force_gather)
+        with timeline_context(op_name, "PLAN_BUILD") if op_name else \
+                contextlib.nullcontext():
+            if send_neighbors is None:
+                W = _static_weight_matrix(self_weight, neighbor_weights)
+            else:
+                W = _dynamic_weight_matrix(st.size, send_neighbors,
+                                           self_weight, neighbor_weights,
+                                           enable_topo_check)
+            plan = CombinePlan(W, force_gather=force_gather)
         if len(st._plan_cache) > 4096:  # unbounded dynamic schedules
             st._plan_cache.clear()
         st._plan_cache[key] = plan
@@ -194,9 +213,9 @@ def neighbor_allreduce(
     """Weighted average of this rank's tensor with its in-neighbors'.
 
     ``tensor`` is a tensor or a list/tuple of tensors (each combined with
-    the same plan); returns the same structure. ``name`` is accepted for
-    API parity with the reference (mpi_ops.py:481-528) and not used.
-    ``force_gather`` overrides the plan's strategy choice.
+    the same plan); returns the same structure. ``name`` names the op in
+    the timeline (reference: mpi_ops.py:481-528). ``force_gather``
+    overrides the plan's strategy choice.
     """
     return _handles.synchronize(neighbor_allreduce_nonblocking(
         tensor, self_weight, neighbor_weights, send_neighbors,
@@ -214,12 +233,14 @@ def neighbor_allreduce_nonblocking(
 ) -> int:
     """:func:`neighbor_allreduce` issued: every shift's transfers at once;
     returns a handle for ``synchronize``."""
+    op_name = _auto_name("neighbor_allreduce", name)
     plan = neighbor_plan(self_weight, neighbor_weights, send_neighbors,
-                         enable_topo_check, force_gather)
-    work, finish = spmd_combine_start(
-        plan.weight_array(), _as_list(tensor), rank=_global_state().rank,
-        n=plan.n, shifts=plan.shifts, use_gather=plan.use_gather)
-    return _handles.allocate(name or "neighbor_allreduce", work,
+                         enable_topo_check, force_gather, op_name)
+    with timeline_context(op_name, "NEIGHBOR_ALLREDUCE"):
+        work, finish = spmd_combine_start(
+            plan.weight_array(), _as_list(tensor), rank=_global_state().rank,
+            n=plan.n, shifts=plan.shifts, use_gather=plan.use_gather)
+    return _handles.allocate(op_name, work,
                              lambda: _like(tensor, finish()))
 
 
@@ -318,10 +339,12 @@ def hierarchical_neighbor_allreduce_nonblocking(
     name: Optional[str] = None,
 ) -> int:
     _global_state().check_homogeneous()
+    op_name = _auto_name("hierarchical_neighbor_allreduce", name)
     plan = _machine_plan(self_weight, neighbor_machine_weights,
                         send_neighbor_machines, enable_topo_check)
-    work, finish = hierarchical_start(plan, _as_list(tensor))
-    return _handles.allocate(name or "hierarchical_neighbor_allreduce", work,
+    with timeline_context(op_name, "HIERARCHICAL_NEIGHBOR_ALLREDUCE"):
+        work, finish = hierarchical_start(plan, _as_list(tensor))
+    return _handles.allocate(op_name, work,
                              lambda: _like(tensor, finish()))
 
 
@@ -359,6 +382,7 @@ def neighbor_allgather(tensor, name: Optional[str] = None):
 def neighbor_allgather_nonblocking(tensor, name: Optional[str] = None) -> int:
     st = _global_state()
     st.check_initialized()
+    op_name = _auto_name("neighbor_allgather", name)
     n, me = st.size, st.rank
     xs = _as_list(tensor)
     for x in xs:
@@ -373,18 +397,19 @@ def neighbor_allgather_nonblocking(tensor, name: Optional[str] = None) -> int:
         layout = st._plan_cache[key] = _gather_layout(st.topology, n)
     in_nbrs, shifts, slot = layout
     ops, outs = [], []
-    for x in xs:
-        x = x.contiguous()
-        out = x.new_empty((len(in_nbrs[me]),) + tuple(x.shape))
-        for si, s in enumerate(shifts):
-            # rank i sends on shift s iff the edge (i, i+s) exists, and j
-            # receives iff (j-s, j) does, so every send meets its receive
-            if slot[si, (me + s) % n] >= 0:
-                ops.append(dist.P2POp(dist.isend, x, (me + s) % n))
-            if slot[si, me] >= 0:
-                ops.append(dist.P2POp(dist.irecv, out[slot[si, me]],
-                                      (me - s) % n))
-        outs.append(out.reshape((-1,) + tuple(x.shape[1:])))
-    work = dist.batch_isend_irecv(ops) if ops else []
-    return _handles.allocate(name or "neighbor_allgather", work,
-                             lambda: _like(tensor, outs))
+    with timeline_context(op_name, "NEIGHBOR_ALLGATHER"):
+        for x in xs:
+            x = x.contiguous()
+            out = x.new_empty((len(in_nbrs[me]),) + tuple(x.shape))
+            for si, s in enumerate(shifts):
+                # rank i sends on shift s iff the edge (i, i+s) exists, and
+                # j receives iff (j-s, j) does, so every send meets its
+                # receive
+                if slot[si, (me + s) % n] >= 0:
+                    ops.append(dist.P2POp(dist.isend, x, (me + s) % n))
+                if slot[si, me] >= 0:
+                    ops.append(dist.P2POp(dist.irecv, out[slot[si, me]],
+                                          (me - s) % n))
+            outs.append(out.reshape((-1,) + tuple(x.shape[1:])))
+        work = dist.batch_isend_irecv(ops) if ops else []
+    return _handles.allocate(op_name, work, lambda: _like(tensor, outs))

@@ -34,6 +34,15 @@ vision models — stay local to each rank, updated by its own forward passes
 and never combined, as the JAX step returns each rank's ``batch_stats``
 uncombined (``with_model_state=True``, ``bluefog_tpu/optimizers.py:179-204``).
 
+Each ``step`` records as the JAX ``_FusedOptimizer.step`` does
+(:343-354): a ``STEP`` timeline activity under the optimizer's ``name``
+(its class name by default), the ``opt.step_sec`` histogram, the flight
+recorder's ``opt.step`` span with the step counter in ``b``, and the
+``opt.step`` gauge once the step returns; an exception escaping the step
+leaves a flight dump (``flight.fatal("opt.step", exc)``) and propagates.
+The spans time the host's issue of the step's device work: no step waits
+for the device.
+
 Usage::
 
     opt = bf.DistributedNeighborAllreduceOptimizer(
@@ -55,7 +64,10 @@ from .ops.collectives import _all_gather_flat, _reduce_scatter_flat
 from .ops.neighbors import (_dynamic_weight_matrix, _uniform_weights,
                             hierarchical_start, neighbor_plan)
 from .ops.plan import CombinePlan, spmd_combine
+from .runtime import flight as _flight
+from .runtime import metrics as _metrics
 from .runtime.state import _global_state
+from .runtime.timeline import timeline_context
 
 
 class _FusedOptimizer:
@@ -66,13 +78,15 @@ class _FusedOptimizer:
 
     def __init__(self, optimizer: torch.optim.Optimizer, model: nn.Module,
                  loss_fn: Callable, *,
-                 num_steps_per_communication: int = 1) -> None:
+                 num_steps_per_communication: int = 1,
+                 name: Optional[str] = None) -> None:
         st = _global_state()
         st.check_initialized()
         self.base = optimizer
         self.model = model
         self.loss_fn = loss_fn
         self.num_steps_per_communication = int(num_steps_per_communication)
+        self.name = name or type(self).__name__
         self._counter = 0
         self._params: List[nn.Parameter] = [
             p for g in optimizer.param_groups for p in g["params"]]
@@ -111,7 +125,22 @@ class _FusedOptimizer:
         kind = self._comm_kind if do_comm else "none"
         plan = self._plan() if kind in ("neighbor_allreduce",
                                         "hierarchical") else None
+        try:
+            with timeline_context(self.name, "STEP"), \
+                    _metrics.timed("opt.step_sec"), \
+                    _flight.recorder().span("opt.step", b=self._counter):
+                loss = self._step(batch, kind, plan)
+        except Exception as exc:
+            # black-box dump before the stack unwinds: the ring's tail IS
+            # the postmortem evidence (rate-limited; never raises)
+            _flight.fatal("opt.step", exc)
+            raise
+        _metrics.gauge("opt.step").set(self._counter)
+        return {"loss": loss.detach()}
 
+    def _step(self, batch, kind: str,
+              plan: Optional[CombinePlan]) -> torch.Tensor:
+        """The step's work: loss and backward, update, communication."""
         self.base.zero_grad(set_to_none=True)
         loss = self.loss_fn(self.model, batch)
         loss.backward()
@@ -128,7 +157,7 @@ class _FusedOptimizer:
                     self._combine(ps, plan)
                 for p, v in zip(ps, new):
                     p.copy_(v)
-        return {"loss": loss.detach()}
+        return loss
 
 
 class DistributedGradientAllreduceOptimizer(_FusedOptimizer):
@@ -233,10 +262,12 @@ class DistributedShardedAllreduceOptimizer(_FusedOptimizer):
 
     def __init__(self, optimizer: torch.optim.Optimizer, model: nn.Module,
                  loss_fn: Callable, *,
-                 num_steps_per_communication: int = 1) -> None:
+                 num_steps_per_communication: int = 1,
+                 name: Optional[str] = None) -> None:
         super().__init__(
             optimizer, model, loss_fn,
-            num_steps_per_communication=num_steps_per_communication)
+            num_steps_per_communication=num_steps_per_communication,
+            name=name)
         if self.num_steps_per_communication != 1:
             raise ValueError(
                 "DistributedShardedAllreduceOptimizer requires "
@@ -277,8 +308,9 @@ class DistributedShardedAllreduceOptimizer(_FusedOptimizer):
               if k != "params"}
         self.base = type(optimizer)([{"params": [self._shard], **hp}])
 
-    def step(self, batch) -> Dict[str, torch.Tensor]:
-        """One ZeRO-1 iteration of this rank; returns ``{"loss": ...}``."""
+    def _step(self, batch, kind: str,
+              plan: Optional[CombinePlan]) -> torch.Tensor:
+        """One ZeRO-1 iteration of this rank."""
         n = _global_state().size
         self._flat_g.zero_()
         for p, gv in self._grads:
@@ -301,4 +333,4 @@ class DistributedShardedAllreduceOptimizer(_FusedOptimizer):
             _all_gather_flat(self._flat_p, self._shard.detach())
             for p, pv, _ in self._copied:
                 p.copy_(pv)
-        return {"loss": loss.detach()}
+        return loss

@@ -12,7 +12,15 @@ trim, the cast back.
 expiry, raises ``RuntimeError`` and leaves the handle valid for a retry, as
 the JAX package does. Under NCCL ``Work.wait()`` orders the current stream
 after the transfer, so the finalizer's kernels run after it without the
-host blocking.
+host blocking. A transfer that fails raises out of ``synchronize`` after a
+flight-recorder dump (``runtime/flight.py``).
+
+With the timeline on, each handle opens a ``COMMUNICATE`` span under its
+op's name when it is issued, on a lane (tid) of its own, closed when
+``poll`` first finds the op done or ``synchronize`` returns (JAX
+``handles.py:40-80``); ``shutdown`` closes the ones still open. The JAX
+package's stall watchdog also closes the spans of handles nobody waits on;
+the port has no watchdog, so those stay open until ``shutdown``.
 """
 
 from __future__ import annotations
@@ -20,9 +28,12 @@ from __future__ import annotations
 import itertools
 import threading
 import time
-from typing import Any, Callable, Dict, Optional, Sequence
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import torch.distributed as dist
+
+from . import flight as _flight
+from .timeline import timeline_end_activity, timeline_start_activity
 
 
 class _Entry:
@@ -72,6 +83,44 @@ _lock = threading.Lock()
 _counter = itertools.count(1)
 _handle_map: Dict[int, _Entry] = {}
 
+# handle -> (op name, tid lane) of its open COMMUNICATE span. Lanes come
+# from a free list so concurrent spans never share a tid (a trace viewer
+# pairs an E with the latest B on its tid); a lane is reused only after
+# its span closes.
+_open_spans: Dict[int, Tuple[str, int]] = {}
+_free_lanes: list = []
+_lane_counter = itertools.count(1000)
+
+
+def _open_span(handle: int, name: str) -> None:
+    with _lock:
+        tid = _free_lanes.pop() if _free_lanes else next(_lane_counter)
+        _open_spans[handle] = (name, tid)
+    if not timeline_start_activity(name, "COMMUNICATE", tid):
+        with _lock:  # timeline off: nothing to close later
+            _open_spans.pop(handle, None)
+            _free_lanes.append(tid)
+
+
+def _close_span(handle: int) -> None:
+    with _lock:
+        span = _open_spans.pop(handle, None)
+    if span is None:
+        return
+    name, tid = span
+    timeline_end_activity(name, tid)
+    with _lock:
+        _free_lanes.append(tid)
+
+
+def close_all_spans() -> None:
+    """Emit the closing edge of every open span (``shutdown``, before the
+    timeline closes, so the trace stays balanced)."""
+    with _lock:
+        open_handles = list(_open_spans)
+    for handle in open_handles:
+        _close_span(handle)
+
 
 def allocate(name: str, work: Sequence, finalize: Callable[[], Any]) -> int:
     """Register an issued op's ``Work`` objects and its finalizer."""
@@ -79,11 +128,13 @@ def allocate(name: str, work: Sequence, finalize: Callable[[], Any]) -> int:
     entry = _Entry(name, work, finalize)
     with _lock:
         _handle_map[handle] = entry
+    _open_span(handle, name)
     return handle
 
 
 def clear() -> None:
     """Drop every handle (called by ``shutdown``)."""
+    close_all_spans()
     with _lock:
         _handle_map.clear()
 
@@ -94,7 +145,10 @@ def poll(handle: int) -> bool:
         entry = _handle_map.get(handle)
     if entry is None:
         raise ValueError(f"unknown or already-synchronized handle {handle}")
-    return entry.ready()
+    done = entry.ready()
+    if done:
+        _close_span(handle)
+    return done
 
 
 def synchronize(handle: int, timeout: Optional[float] = None) -> Any:
@@ -119,7 +173,16 @@ def synchronize(handle: int, timeout: Optional[float] = None) -> Any:
                     f"synchronize('{entry.name}', handle {handle}) exceeded "
                     f"the {timeout:.1f}s deadline; the handle stays valid")
             time.sleep(0.001)
-    return entry.result()
+    try:
+        out = entry.result()
+    except Exception as exc:
+        # black-box dump before the caller decides what to do with the
+        # failed transfer: the ring's tail is the evidence
+        _flight.fatal("synchronize", exc)
+        raise
+    finally:
+        _close_span(handle)
+    return out
 
 
 def wait(handle: int, timeout: Optional[float] = None) -> Any:

@@ -19,7 +19,6 @@ say to pass ``device="cpu"``; nothing quietly carries on on the CPU.
 
 from __future__ import annotations
 
-import logging
 import os
 import shutil
 import tempfile
@@ -30,9 +29,11 @@ import torch
 import torch.distributed as dist
 
 from .. import topology as topology_util
+from . import flight as _flight
 from . import handles
-
-logger = logging.getLogger("bluefog_tpu_torch")
+from . import metrics as _metrics
+from .config import knob_env
+from .logging import logger
 
 
 def resolve_device(device=None) -> torch.device:
@@ -68,6 +69,7 @@ class _State:
         self.machine_group = None
         # the gloo group ``checkpoint`` coordinates over, made at first use
         self.checkpoint_group = None
+        self.timeline = None
         self._plan_cache: dict = {}
 
     def check_initialized(self) -> None:
@@ -160,6 +162,12 @@ def init(
         torch.cuda.set_device(dev)
     st.device = dev
     _make_subgroups(st)
+    # A fresh telemetry epoch for the job: the instruments zero in place,
+    # the flight ring starts anew (a dump belongs to THIS job), and an
+    # uncaught exception leaves a dump behind.
+    _metrics.reset_for_job()
+    _flight.reset_for_job()
+    _flight.install_excepthook()
     st._plan_cache = {}
     st.topology = None
     st.initialized = True
@@ -171,6 +179,13 @@ def init(
         is_weighted = False
     if not set_topology(topo, is_weighted=is_weighted):
         raise RuntimeError("failed to set initial topology")
+    prefix = knob_env("BFT_TIMELINE")
+    if prefix:
+        from .timeline import Timeline
+
+        st.timeline = Timeline(prefix, process_index=st.rank)
+    # BFT_METRICS_INTERVAL / BFT_METRICS_PROM: the cadence thread
+    _metrics.start_publisher_if_needed()
     logger.info("bluefog_tpu_torch initialized: rank %d of %d on %s (%s)",
                 st.rank, st.size, st.device, dist.get_backend())
 
@@ -181,6 +196,20 @@ def shutdown() -> None:
     st = _state
     if not st.initialized:
         return
+    if _metrics.publication_enabled():
+        # final flush: a short job still leaves a current scrape
+        try:
+            _metrics.publish_now()
+        except Exception:  # noqa: BLE001 — teardown must not raise
+            pass
+    _metrics.stop_publisher()
+    # close open per-op spans BEFORE the timeline so the trace stays
+    # balanced (every B gets its E edge)
+    handles.close_all_spans()
+    if st.timeline is not None:
+        st.timeline.close()
+        st.timeline = None
+    _flight.uninstall_excepthook()
     if st.owns_group and dist.is_initialized():
         dist.destroy_process_group()
     if st.store_dir is not None:

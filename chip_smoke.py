@@ -128,6 +128,26 @@ Phases (each raises on failure; the script then exits non-zero):
    ms/step, peak memory and falling losses, then 20 steps fed from host
    uint8 batches through ``prefetch_to_device``. Convolutions, BN and
    pooling are cuDNN's and PyTorch's: this path launches none of K1-K3.
+13. observability, on the main path (world 1, NCCL): (a) the headline LM,
+   2 warm-up and 5 steps under ``start_timeline``: the trace is chrome
+   JSON whose first event is the clock anchor and which holds 7 balanced
+   ``STEP`` spans under the optimizer's name; ``metrics.snapshot()`` shows
+   the ``opt.step`` gauge and the ``opt.step_sec`` count at 7;
+   ``step_report()`` reports step 7 and its ``step_sec`` within
+   ``OBS_STEP_TOL_MS`` of the trace's last ``STEP``; ``prometheus_text()``
+   parses line by line; ``flight_dump()`` reads back through
+   ``pack_dump``/``unpack_dump`` and ``analyze_dump``; each kernel launches
+   ``LAYERS`` times a step. Prints the trace's events and bytes and the
+   flight ring's records per step. (b) ``torch.profiler`` over one step
+   (after one under the profiler's warm-up): every K1-K3 launch inside
+   the ``<name>.STEP`` range, and the planted bare ``loss.backward()``
+   trace must fail that check. (c) In a fresh
+   job, a step fed targets of half the sequence raises ``ValueError`` and
+   leaves ``bf_flight_<rank>.json`` under ``BFT_FLIGHT_DIR`` with the
+   ``fatal.opt.step`` instant. (d) Collection only against the timeline
+   plus a 1 s Prometheus publisher, in alternating blocks: the LM (5 steps
+   a block, on/off within ``OBS_LM_RATIO``) and ``bench.setup()``'s
+   ResNet-50 step (20 a block, recorded), ms/step and host issue ms.
 
 The line before the last is the ``kernels`` JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -139,8 +159,10 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import subprocess
 import sys
+import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -353,6 +375,34 @@ RING_FAULTS = ("k_off", "drop_merge")
 TOL_RING = 6e-3
 TOL_RING_LOSS = 1e-6
 TOL_CP_LOSS = 1e-5
+
+# the observability phase. (a) The headline main path, WARMUP + STEPS
+# steps under ``start_timeline``: the trace's last STEP span against
+# ``step_report()["step_sec"]`` within OBS_STEP_TOL_MS (both time the same
+# host interval, a few spans apart). (b) ``torch.profiler`` over one step
+# (after a warm-up one): each kernel's launch (the ``cudaLaunchKernel``
+# its kernel record's ``correlation`` id names) inside the optimizer's
+# ``<name>.STEP`` range, LAYERS launches each; the kernels as the profiler
+# names them. (d) Off (collection only) against on (timeline + a 1 s
+# Prometheus publisher) in turns, OBS_ROUNDS rounds of off, on, on, off,
+# each block after OBS_ISSUE_PROBES steps timed one by one for the host's
+# issue: the LM's ms/step on/off within OBS_LM_RATIO (a few dozen
+# microsecond spans against a step of ~62 ms the device is busy for 0.97
+# of; measured 0.9999-1.0078 on an H100, PERF.md); ResNet-50's is
+# recorded, not gated.
+OBS_STEP_TOL_MS = 1.0
+OBS_LM_RATIO = 1.05
+OBS_ROUNDS = 2
+OBS_LM_STEPS = 5
+OBS_VISION_STEPS = 20
+OBS_ISSUE_PROBES = 3
+OBS_KERNELS = {name: re.compile(rf"\b{name}_kernel\b")
+               for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+_PROM_SAMPLE = re.compile(
+    r"^[a-zA-Z_:][a-zA-Z0-9_:]*(\{[^}]*\})? -?[0-9.eE+-]+$")
+_PROM_TYPE = re.compile(
+    r"^# TYPE [a-zA-Z_:][a-zA-Z0-9_:]* (counter|gauge|histogram)$")
+_PROM_HELP = re.compile(r"^# HELP [a-zA-Z_:][a-zA-Z0-9_:]* \S")
 
 KERNELS = {
     "flash_fwd": ("bluefog_tpu_torch/parallel/csrc/flash_fwd.cu",
@@ -2447,6 +2497,321 @@ def vision_train(bf, torch, card: str) -> dict:
             "host_img_per_s": host_img_s}
 
 
+def _step_spans(events: list, cat: str) -> list:
+    """(begin, end) ts of each ``STEP`` span of ``cat`` in a chrome trace;
+    raises unless every span of the trace balances on its (cat, tid)
+    lane."""
+    open_at: dict = {}
+    steps = []
+    for e in events:
+        key = (e.get("cat"), e.get("tid"))
+        if e.get("ph") == "B":
+            open_at.setdefault(key, []).append(e)
+        elif e.get("ph") == "E":
+            if not open_at.get(key):
+                raise RuntimeError(f"timeline: E without B on {key}")
+            b = open_at[key].pop()
+            if b["name"] == "STEP" and b["cat"] == cat:
+                steps.append((b["ts"], e["ts"]))
+    if any(open_at.values()):
+        raise RuntimeError(f"timeline: unclosed spans {open_at}")
+    return steps
+
+
+def _check_prometheus(text: str) -> int:
+    """Parse the exposition line by line; returns the sample count."""
+    lines = text.strip().splitlines()
+    samples = 0
+    for i, line in enumerate(lines):
+        if line.startswith("# TYPE"):
+            name = line.split()[2]
+            ok = _PROM_TYPE.match(line) and i > 0 and \
+                lines[i - 1].startswith(f"# HELP {name} ")
+        elif line.startswith("#"):
+            ok = _PROM_HELP.match(line)
+        else:
+            ok = _PROM_SAMPLE.match(line)
+            samples += 1
+        if not ok:
+            raise RuntimeError(f"prometheus_text: bad line {line!r}")
+    return samples
+
+
+def obs_timeline(bf, fl, torch, dev, tmp: str) -> dict:
+    """(a) The main path under the timeline: the trace, the metrics, the
+    step report, the Prometheus text and a dump read back."""
+    from bluefog_tpu_torch.runtime import flight
+
+    model, opt, batch = headline(bf, torch, dev, fl.flash_attention)
+    prefix = os.path.join(tmp, "tl_")
+    if not bf.start_timeline(prefix):
+        raise RuntimeError("start_timeline refused")
+    run = _train_steps(fl, torch, opt, batch)
+    bf.stop_timeline()
+    _check_training("observability", run, LAYERS)
+    total = WARMUP + STEPS
+    path = f"{prefix}{bf.rank()}.json"
+    with open(path) as f:
+        events = json.load(f)
+    first = events[0]
+    if first.get("name") != "bf.clock_sync_us" or first.get("ph") != "C":
+        raise RuntimeError(f"timeline: first event {first} is not the "
+                           f"clock anchor")
+    spans = _step_spans(events, opt.name)
+    snap = bf.metrics.snapshot()
+    gauge = snap["gauges"].get("opt.step")
+    count = snap["hists"]["opt.step_sec"]["count"]
+    rep = bf.step_report()
+    last_ms = (spans[-1][1] - spans[-1][0]) / 1e3 if spans else math.nan
+    gap_ms = abs(rep["step_sec"] * 1e3 - last_ms)
+    samples = _check_prometheus(bf.metrics.prometheus_text())
+    dump_path = bf.flight_dump(path=os.path.join(tmp, "dump.json"))
+    with open(dump_path) as f:
+        doc = json.load(f)
+    back = flight.unpack_dump(flight.pack_dump(doc))
+    rep_dump = flight.analyze_dump(back)
+    log(f"obs timeline: {len(spans)} STEP spans under {opt.name}, "
+        f"opt.step gauge {gauge}, opt.step_sec count {count}, "
+        f"step_report step {rep['step']} step_sec "
+        f"{rep['step_sec'] * 1e3:.3f} ms vs the trace's last STEP "
+        f"{last_ms:.3f} ms (|diff| {gap_ms:.4f} ms, limit "
+        f"{OBS_STEP_TOL_MS}), prometheus samples {samples}, dump "
+        f"{os.path.getsize(dump_path)} bytes read back, step "
+        f"{rep_dump and rep_dump['step']}")
+    per_step = {"events": len(events) / total,
+                "bytes": os.path.getsize(path) / total,
+                "flight_records": doc["recorded"] / total}
+    log(f"obs per step: trace events {per_step['events']:.2f}, trace bytes "
+        f"{per_step['bytes']:.1f}, flight records "
+        f"{per_step['flight_records']:.2f} ({len(events)} events, "
+        f"{os.path.getsize(path)} bytes, {doc['recorded']} records in "
+        f"{total} steps)")
+    log(f"obs launches: {run['counts']}")
+    bad = []
+    if len(spans) != total:
+        bad.append(f"{len(spans)} STEP spans, expected {total}")
+    if gauge != total or count != total or rep["step"] != total:
+        bad.append(f"gauge {gauge}, count {count}, report step "
+                   f"{rep['step']}, expected {total}")
+    if not gap_ms <= OBS_STEP_TOL_MS:
+        bad.append(f"step_report step_sec off the trace by {gap_ms} ms")
+    if back != doc or rep_dump is None or rep_dump["step"] != total:
+        bad.append("the dump did not read back")
+    if bad:
+        raise RuntimeError("observability (a): " + "; ".join(bad))
+    return {"model": model, "opt": opt, "batch": batch,
+            "step_gap_ms": gap_ms, "per_step": per_step,
+            "counts": run["counts"], "ms_per_step": run["dt"] * 1e3}
+
+
+def _profile_events(torch, fn, path: str) -> list:
+    """Chrome events of a ``torch.profiler`` trace (CPU and CUDA) of
+    ``fn()``, the device synchronised inside the window. A first, untraced
+    ``fn()`` under the profiler's warm-up comes before: in a window opened
+    cold, CUPTI can miss the first kernel records (one K1 of a profiled
+    bare backward went missing once on an H100)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=lambda p: p.export_chrome_trace(path)) as prof:
+        for _ in range(2):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+    with open(path) as f:
+        doc = json.load(f)
+    return doc["traceEvents"] if isinstance(doc, dict) else doc
+
+
+def launches_in_range(events: list, range_name: str) -> dict:
+    """Per kernel of ``OBS_KERNELS``: ``(launches, inside)``, the kernel
+    records of the trace and how many of them were launched (the host's
+    ``cudaLaunchKernel`` record of the same ``correlation`` id) inside a
+    ``range_name`` range. The launches of the backward kernels come from
+    the autograd engine's thread: inside means inside in time."""
+    ranges = [(e["ts"], e["ts"] + e["dur"]) for e in events
+              if e.get("cat") == "user_annotation"
+              and e.get("name") == range_name]
+    host = {e["args"]["correlation"]: e for e in events
+            if e.get("cat") in ("cuda_runtime", "cuda_driver")
+            and "correlation" in e.get("args", {})}
+    out = {}
+    for name, pattern in OBS_KERNELS.items():
+        launches = inside = 0
+        for e in events:
+            if e.get("cat") != "kernel" or not pattern.search(
+                    e.get("name", "")):
+                continue
+            launches += 1
+            h = host.get(e.get("args", {}).get("correlation"))
+            if h is not None and any(
+                    lo <= h["ts"] and h["ts"] + h.get("dur", 0.0) <= hi
+                    for lo, hi in ranges):
+                inside += 1
+        out[name] = (launches, inside)
+    return out
+
+
+def obs_profiler(bf, torch, a: dict, tmp: str) -> dict:
+    """(b) The profiler bridge on one step of the main path, and the
+    planted fault: a bare ``loss.backward()`` traced the same way."""
+    opt, model, batch = a["opt"], a["model"], a["batch"]
+    rng = f"{opt.name}.STEP"
+    events = _profile_events(torch, lambda: opt.step(batch),
+                             os.path.join(tmp, "profile_step.json"))
+    got = launches_in_range(events, rng)
+
+    def bare():
+        model.zero_grad(set_to_none=True)
+        bf.models.lm_loss(model, batch).backward()
+
+    planted = launches_in_range(
+        _profile_events(torch, bare, os.path.join(tmp, "profile_bare.json")),
+        rng)
+    log(f"obs profiler: {len(events)} trace events; (launches, inside "
+        f"{rng}) per kernel {got}; planted bare backward {planted}")
+    want = (LAYERS, LAYERS)
+    if any(v != want for v in got.values()):
+        raise RuntimeError(f"observability (b): kernel launches outside "
+                           f"the {rng} range or missing: {got}, expected "
+                           f"{want} each")
+    if any(v[0] != LAYERS for v in planted.values()) or \
+            all(v == want for v in planted.values()):
+        raise RuntimeError(f"observability (b): the planted bare backward "
+                           f"passed the check or lost its launches: "
+                           f"{planted}")
+    return {"launches": got, "planted": planted}
+
+
+def obs_postmortem(bf, torch, a: dict, tmp: str) -> dict:
+    """(c) A step fed a wrongly shaped batch (the targets cut to half the
+    sequence) in a fresh job: the exception propagates, and
+    ``bf_flight_<rank>.json`` under ``BFT_FLIGHT_DIR`` holds the
+    ``fatal.opt.step`` instant."""
+    opt, (toks, tgts) = a["opt"], a["batch"]
+    bf.shutdown()
+    os.environ["BFT_FLIGHT_DIR"] = tmp
+    try:
+        bf.init()
+        try:
+            opt.step((toks, tgts[:, :SEQ // 2]))
+        except ValueError as exc:
+            raised = f"{type(exc).__name__}: {exc}"
+        else:
+            raise RuntimeError("observability (c): a wrongly shaped batch "
+                               "did not raise")
+    finally:
+        del os.environ["BFT_FLIGHT_DIR"]
+    from bluefog_tpu_torch.runtime import flight
+
+    path = os.path.join(tmp, f"bf_flight_{bf.rank()}.json")
+    with open(path) as f:
+        doc = json.load(f)
+    instants = [doc["names"][n] for k, n in zip(doc["events"]["kind"],
+                                                doc["events"]["name"])
+                if k == flight.INSTANT]
+    log(f"obs postmortem: raised {raised[:120]!r}; {path} reason "
+        f"{doc['meta']['reason']!r}, instants {instants}")
+    if "fatal.opt.step" not in instants or \
+            "ValueError" not in (doc["meta"]["exception"] or ""):
+        raise RuntimeError(f"observability (c): the dump lacks the fatal "
+                           f"step: {doc['meta']}, {instants}")
+    torch.cuda.synchronize()
+    return {"reason": doc["meta"]["reason"], "instants": instants}
+
+
+def _obs_blocks(bf, step, sync, steps: int, tmp: str, label: str,
+                rounds: int = OBS_ROUNDS) -> dict:
+    """Off/on blocks in turns (``rounds`` of off, on, on, off): each block
+    first times the host's issue of OBS_ISSUE_PROBES steps, each from an
+    idle device (host clock around ``step()``, synchronised before and
+    after), then ``steps`` steps timed to a synchronise. On: the timeline
+    and a 1 s Prometheus publisher, each on-block's file checked for a
+    publication."""
+    out = {"off": [], "on": [], "issue_off": [], "issue_on": [],
+           "published": 0}
+    prom = os.path.join(tmp, f"{label}.prom")
+    for i, mode in enumerate(["off", "on", "on", "off"] * rounds):
+        if mode == "on":
+            os.environ["BFT_METRICS_PROM"] = prom
+            os.environ["BFT_METRICS_INTERVAL"] = "1"
+            bf.start_timeline(os.path.join(tmp, f"{label}_{i}_"))
+            bf.metrics.start_publisher_if_needed()
+        try:
+            issue = 0.0
+            for _ in range(OBS_ISSUE_PROBES):
+                sync()
+                t0 = time.perf_counter()
+                step()
+                issue += time.perf_counter() - t0
+            sync()
+            out[f"issue_{mode}"].append(issue / OBS_ISSUE_PROBES * 1e3)
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                step()
+            sync()
+            out[mode].append((time.perf_counter() - t0) / steps * 1e3)
+        finally:
+            if mode == "on":
+                bf.metrics.stop_publisher()
+                bf.stop_timeline()
+                del os.environ["BFT_METRICS_PROM"]
+                del os.environ["BFT_METRICS_INTERVAL"]
+        if os.path.exists(prom):
+            out["published"] += 1
+            os.remove(prom)
+    out["ratio"] = sum(out["on"]) / sum(out["off"])
+    return out
+
+
+def obs_overhead(bf, torch, a: dict, card: str, tmp: str) -> dict:
+    """(d) The optional part's cost: the LM (gated) and ResNet-50."""
+    from bluefog_tpu_torch import bench
+
+    opt, batch = a["opt"], a["batch"]
+    lm = _obs_blocks(bf, lambda: opt.step(batch), torch.cuda.synchronize,
+                     OBS_LM_STEPS, tmp, "lm")
+    bf.shutdown()
+    vopt, vbatch, sync = bench.setup()
+    try:
+        for _ in range(bench.WARMUP):
+            vopt.step(vbatch)
+        vision = _obs_blocks(bf, lambda: vopt.step(vbatch), sync,
+                             OBS_VISION_STEPS, tmp, "resnet50")
+    finally:
+        bf.shutdown()
+    for label, r in (("LM", lm), ("ResNet-50", vision)):
+        log(f"obs overhead ({card}) {label}: ms/step off "
+            f"{[round(x, 4) for x in r['off']]} on "
+            f"{[round(x, 4) for x in r['on']]}, on/off {r['ratio']:.4f}; "
+            f"host issue ms off {[round(x, 4) for x in r['issue_off']]} "
+            f"on {[round(x, 4) for x in r['issue_on']]}; on-blocks with a "
+            f"publication {r['published']} of {2 * OBS_ROUNDS}")
+    if not lm["ratio"] <= OBS_LM_RATIO:
+        raise RuntimeError(f"observability (d): LM on/off {lm['ratio']:.4f}"
+                           f" above {OBS_LM_RATIO}")
+    return {"lm": lm, "resnet50": vision}
+
+
+def observability(bf, fl, torch, card: str) -> dict:
+    """Phase 13: (a) timeline and metrics, (b) the profiler bridge, (c) a
+    postmortem on the card, (d) the overhead of the optional part."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="bft_obs_") as tmp:
+        bf.init()
+        dev = torch.device("cuda", torch.cuda.current_device())
+        a = obs_timeline(bf, fl, torch, dev, tmp)
+        b = obs_profiler(bf, torch, a, tmp)
+        c = obs_postmortem(bf, torch, a, tmp)
+        d = obs_overhead(bf, torch, a, card, tmp)
+    wall = time.perf_counter() - t0
+    log(f"obs wall: {wall:.1f} s")
+    return {"step_gap_ms": a["step_gap_ms"], "per_step": a["per_step"],
+            "counts": a["counts"], "ms_per_step": a["ms_per_step"],
+            "profiler": b, "postmortem": c, "overhead": d, "wall_s": wall}
+
+
 def max_abs_errs(fl, torch, dev, B, S, H, D) -> dict:
     """Each kernel's max |kernel - plain| at the main path's shape.
 
@@ -2568,6 +2933,8 @@ def main() -> int:
     vision = dict(check=vision_check(bf, torch, dev))
     torch.cuda.empty_cache()
     vision["train"] = vision_train(bf, torch, card)
+    torch.cuda.empty_cache()
+    obs = observability(bf, fl, torch, card)
 
     kernels = []
     for name, (src, tpu) in KERNELS.items():
@@ -2591,7 +2958,8 @@ def main() -> int:
                 "tp_loss_fn LM": par["train"]["tp"]["counts"][name],
                 "pp_train_step_fn LM": par["train"]["pp"]["counts"][name],
                 "pp_train_step_fn LM, fused": par["train"]["pp fused"][
-                    "counts"][name]},
+                    "counts"][name],
+                "observability LM": obs["counts"][name]},
         })
     os.makedirs(os.path.dirname(OUT), exist_ok=True)
     with open(OUT, "w") as f:
@@ -2599,7 +2967,7 @@ def main() -> int:
                    "context": ctx, "optimizers": opts, "ce": ce,
                    "lm_bench": lm_bench_runs,
                    "moe": moe, "experts": experts, "parallel": par,
-                   "vision": vision}, f,
+                   "vision": vision, "observability": obs}, f,
                   indent=1)
     log(f"wall: {time.perf_counter() - t_start:.1f} s after the card check")
     log(json.dumps({"kernels": kernels}))

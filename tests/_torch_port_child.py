@@ -790,6 +790,55 @@ def _pipeline(bf, torch, rank: int, world: int, inp) -> dict:
     return out
 
 
+def timeline_ops(bf, x, n: int, make_opt, steps: int = 3):
+    """The ops of the timeline test, one package's functions ``bf`` on
+    this process's ``x``: the port's, or the JAX package's on rank-stacked
+    inputs; ``make_opt()`` returns ``(opt, step)``, the optimizer and a
+    function running one of its steps."""
+    sends = {r: [(r + 1) % n] for r in range(n)}
+    nw = {r: {(r - 1) % n: 0.5} for r in range(n)}
+    bf.allreduce(x, name="tl.allreduce")
+    bf.broadcast(x, 1, name="tl.broadcast")
+    bf.allgather(x, name="tl.allgather")
+    bf.neighbor_allreduce(x, name="tl.nar.static")
+    # the first dynamic call builds the plan (PLAN_BUILD), the second hits
+    bf.neighbor_allreduce(x, self_weight=0.5, neighbor_weights=nw,
+                          send_neighbors=sends, name="tl.nar.dyn")
+    bf.neighbor_allreduce(x, self_weight=0.5, neighbor_weights=nw,
+                          send_neighbors=sends, name="tl.nar.dyn2")
+    bf.pair_gossip(x, [r ^ 1 for r in range(n)], name="tl.pair")
+    bf.synchronize(bf.allreduce_nonblocking(x, name="tl.nb"))
+    with bf.timeline_context("tl.manual", "GRADIENT_COMPUTATION"):
+        pass
+    opt, step = make_opt()
+    for _ in range(steps):
+        step()
+    return opt
+
+
+def _timeline(bf, torch, rank: int, world: int, inp) -> dict:
+    """The timeline test's ops and 3 optimizer steps with the timeline on
+    (``BFT_TIMELINE`` from the parent); the trace file is the output."""
+    from torch import nn
+
+    x = torch.from_numpy(inp["x"][rank])
+
+    def make_opt():
+        model = nn.Linear(x.shape[-1], 1)
+        opt = bf.DistributedNeighborAllreduceOptimizer(
+            torch.optim.SGD(model.parameters(), lr=0.1), model,
+            lambda m, b: (m(b) ** 2).mean())
+        return opt, lambda: opt.step(x)
+
+    from bluefog_tpu_torch.runtime.logging import _RankPrefixFilter
+
+    opt = timeline_ops(bf, x, world, make_opt)
+    return {"step": np.array(opt._counter),
+            "timeline_on": np.array(bf.runtime.state._global_state()
+                                    .timeline is not None),
+            "log_prefix": np.array(_RankPrefixFilter._prefix())}
+
+
 def _examples(tmp_dir: str) -> None:
     """Every example of ``bluefog_tpu_torch/examples/`` (but the
     long-context one) through its entry point, in turn, in this rank of a
@@ -843,7 +892,8 @@ def main() -> None:
            "optimizers": _optimizers, "context": _context,
            "checkpoint": _checkpoint, "expert": _expert,
            "optimization": _optimization, "tensor": _tensor,
-           "pipeline": _pipeline}[mode](bf, torch, rank, world, inp)
+           "pipeline": _pipeline, "timeline": _timeline}[mode](
+               bf, torch, rank, world, inp)
     bf.barrier()
     bf.shutdown()
     np.savez(os.path.join(tmp_dir, f"out_{rank}.npz"), **out)

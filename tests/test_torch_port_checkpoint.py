@@ -190,7 +190,7 @@ def test_meta_sidecar_records_world_identity(world1, tmp_path):
     assert step == 4
 
 
-def test_meta_mismatch_warns_and_strict_raises(world1, tmp_path, caplog):
+def test_meta_mismatch_warns_and_strict_raises(world1, tmp_path):
     path = str(tmp_path / "mismatch_ck")
     ck.save(path, _opt(), step=1)
     meta = ck.read_meta(path)
@@ -198,9 +198,17 @@ def test_meta_mismatch_warns_and_strict_raises(world1, tmp_path, caplog):
     meta["topology_crc"] = (meta["topology_crc"] + 1) & 0xFFFFFFFF
     with open(ck._meta_path(path), "w") as f:
         json.dump(meta, f)
-    with caplog.at_level(logging.WARNING, logger="bluefog_tpu_torch"):
+    # the package logger sets propagate=False, as the JAX package's does
+    # (tests/test_checkpoint.py): capture with our own handler
+    records = []
+    cap = logging.Handler(level=logging.WARNING)
+    cap.emit = records.append
+    ck.logger.addHandler(cap)
+    try:
         ck.restore(path, _opt())
-    assert any("different world" in r.getMessage() for r in caplog.records)
+    finally:
+        ck.logger.removeHandler(cap)
+    assert any("different world" in r.getMessage() for r in records)
     with pytest.raises(RuntimeError, match="different world"):
         ck.restore(path, _opt(), strict=True)
 
