@@ -44,6 +44,10 @@ from .runtime.state import (
 )
 from .runtime.handles import poll, synchronize, wait
 
+# the control plane's typed failures (runtime/native.py)
+from .runtime.native import (PeerLostError, QuorumLostError,
+                             StaleIncarnationError)
+
 # timeline (chrome tracing; ``timeline_context`` also names a
 # torch.profiler range)
 from .runtime.timeline import (
@@ -56,6 +60,7 @@ from .runtime.timeline import (
 
 # metrics registry (Prometheus text, packed snapshots, the health view)
 from .runtime import metrics
+from .runtime.metrics import cluster_health
 
 # flight recorder: always-on black box, postmortem dumps, step attribution
 from .runtime import flight
@@ -105,9 +110,11 @@ from .optimizers import (
     DistributedShardedAllreduceOptimizer,
 )
 
-# parameter sync utilities (reference: torch/utility.py)
+# parameter sync utilities (reference: torch/utility.py) and the
+# torchvision converters
 from .utils import (broadcast_parameters, allreduce_parameters,
-                    broadcast_optimizer_state)
+                    broadcast_optimizer_state, resnet_from_torch,
+                    vgg_from_torch)
 
 from . import checkpoint
 from . import models

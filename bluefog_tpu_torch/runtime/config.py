@@ -25,10 +25,13 @@ from typing import Tuple
 class Knob:
     """One declared environment knob.
 
-    ``type`` is one of ``int``/``float``/``str``/``bool``/``path``
-    (``bool`` knobs are the ``"0"``/``"1"`` convention). ``default`` is the
-    typed default (None = unset: the site decides). ``jax_name`` is the
-    JAX package's knob this one stands for.
+    ``type`` is one of ``int``/``float``/``str``/``bool``/``path``/``spec``
+    (``bool`` knobs are the ``"0"``/``"1"`` convention; ``spec`` is a
+    grammar of its own). ``default`` is the typed default (None = unset:
+    the site decides). ``jax_name`` is the JAX package's knob this one
+    stands for. ``scope`` is ``native`` for the knobs the native library
+    (``csrc/bf_runtime.cc``) reads itself, under their ``jax_name``:
+    ``runtime/native.py`` hands it the ``BFT_*`` value under that name.
     """
 
     name: str
@@ -36,6 +39,7 @@ class Knob:
     default: object
     doc: str
     jax_name: str
+    scope: str = "python"
 
 
 KNOBS: Tuple[Knob, ...] = (
@@ -56,7 +60,9 @@ KNOBS: Tuple[Knob, ...] = (
     Knob("BFT_METRICS_PROM", "path", None,
          "path of a Prometheus text-exposition file, rewritten atomically "
          "on the metrics cadence (implies a 10 s cadence when "
-         "`BFT_METRICS_INTERVAL` is unset)", "BLUEFOG_METRICS_PROM"),
+         "`BFT_METRICS_INTERVAL` is unset). In a job of more than one rank "
+         "each rank writes `<root>.<rank><ext>` (`scrape.prom` -> "
+         "`scrape.3.prom`)", "BLUEFOG_METRICS_PROM"),
     Knob("BFT_STRAGGLER_STEPS", "int", 3,
          "step-counter spread at which the health view flags a rank as a "
          "straggler", "BLUEFOG_STRAGGLER_STEPS"),
@@ -74,6 +80,95 @@ KNOBS: Tuple[Knob, ...] = (
          "rate limit (seconds) between automatic flight dumps (fatal "
          "optimizer steps); an explicit `bf.flight_dump()` bypasses it",
          "BLUEFOG_FLIGHT_MIN_INTERVAL"),
+    # -- the control plane (runtime/control_plane.py, native.py, router.py,
+    #    shard_server.py) --------------------------------------------------
+    Knob("BFT_CP_HOST", "str", None,
+         "control-plane server host (with `BFT_CP_PORT`: the forced form); "
+         "unset, a `torchrun` world of more than one rank derives it from "
+         "`MASTER_ADDR`", "BLUEFOG_CP_HOST"),
+    Knob("BFT_CP_PORT", "int", None,
+         "control-plane server port (default: `MASTER_PORT` + 17)",
+         "BLUEFOG_CP_PORT"),
+    Knob("BFT_CP_RANK", "int", 0,
+         "this process's control-plane rank when `BFT_CP_WORLD` is set "
+         "(default: its rank in the process group)", "BLUEFOG_CP_RANK"),
+    Knob("BFT_CP_WORLD", "int", 0,
+         "number of processes in the job (0 = the process group's size)",
+         "BLUEFOG_CP_WORLD"),
+    Knob("BFT_CP_SHARDS", "int", 1,
+         "shard the control plane across N servers on ports PORT..PORT+N-1, "
+         "all served by rank 0; clients route each key by a stable hash "
+         "and fail over along the shard ring", "BLUEFOG_CP_SHARDS"),
+    Knob("BFT_CP_HOSTS", "str", None,
+         "explicit `HOST:PORT,HOST:PORT,...` endpoints of external shard "
+         "servers (`python bluefog_tpu_torch/runtime/shard_server.py`); "
+         "overrides `BFT_CP_HOST`/`PORT`/`SHARDS`", "BLUEFOG_CP_HOSTS"),
+    Knob("BFT_CP_SERVE", "bool", True,
+         "`0` stops rank 0 from serving (another process owns the server)",
+         "BLUEFOG_CP_SERVE"),
+    Knob("BFT_CP_DISABLE", "bool", False,
+         "`1` turns the control plane off entirely", "BLUEFOG_CP_DISABLE"),
+    Knob("BFT_CP_CONNECT_TIMEOUT", "float", 30.0,
+         "seconds `bf.init` retries the control-plane connect before a job "
+         "of more than one process fails", "BLUEFOG_CP_CONNECT_TIMEOUT"),
+    Knob("BFT_CP_SECRET", "str", None,
+         "shared secret of the mutual HMAC-SHA256 connection handshake; "
+         "unset = unauthenticated", "BLUEFOG_CP_SECRET"),
+    Knob("BFT_CP_RETRIES", "int", 3,
+         "reconnect attempts per control-plane op after a wire failure; "
+         "`0` fails fast", "BLUEFOG_CP_RETRIES", scope="native"),
+    Knob("BFT_CP_BACKOFF_MS", "int", 50,
+         "initial reconnect backoff, doubling per attempt, capped at 2 s",
+         "BLUEFOG_CP_BACKOFF_MS", scope="native"),
+    Knob("BFT_CP_LOCK_LEASE", "float", 60.0,
+         "seconds a control-plane lock may be held before a waiter may "
+         "force-release it (`PeerLostError`); read by the server at start",
+         "BLUEFOG_CP_LOCK_LEASE", scope="native"),
+    Knob("BFT_CP_BARRIER_TIMEOUT", "float", 600.0,
+         "seconds a control-plane barrier waits for stragglers before "
+         "waking every waiter with `PeerLostError`; read by the server at "
+         "start", "BLUEFOG_CP_BARRIER_TIMEOUT", scope="native"),
+    Knob("BFT_CP_REPL_TIMEOUT", "float", 30.0,
+         "seconds a shard server waits for its ring successor's WAL ack "
+         "before degrading to unreplicated", "BLUEFOG_CP_REPL_TIMEOUT",
+         scope="native"),
+    Knob("BFT_CP_WAL_DEPTH", "int", 65536,
+         "record cap of a shard server's WAL replication queue",
+         "BLUEFOG_CP_WAL_DEPTH", scope="native"),
+    Knob("BFT_CP_REPLICATION", "int", 1,
+         "copies of every acked record on a sharded control plane: `0` "
+         "unreplicated, `1`/`2` the ring-successor chain, `R>=3` quorum",
+         "BLUEFOG_CP_REPLICATION"),
+    Knob("BFT_CP_REJOIN_TIMEOUT", "float", 30.0,
+         "seconds a restarted shard server (`--rejoin`) retries its "
+         "snapshot catch-up", "BLUEFOG_CP_REJOIN_TIMEOUT"),
+    Knob("BFT_CP_FAULT", "spec", None,
+         "testing only: deterministic fault injection, "
+         "`drop_after=N,delay_ms=M,trunc=0|1,seed=S`, "
+         "`delay_edges=src>dst:ms;...`, `partition=0,1|2,3[,part_after=S]"
+         "[,heal_after=S]`", "BLUEFOG_CP_FAULT"),
+    Knob("BFT_CP_MAILBOX_MAX_MB", "float", 256.0,
+         "per-mailbox byte cap on the control-plane server",
+         "BLUEFOG_CP_MAILBOX_MAX_MB"),
+    Knob("BFT_CP_STREAMS", "int", 4,
+         "width of each client's striped connection pool (1-16); `1` keeps "
+         "every byte on one connection", "BLUEFOG_CP_STREAMS"),
+    Knob("BFT_CP_STRIPE_MIN_MB", "float", 4.0,
+         "bulk payloads at or above this many MB stripe across the pool",
+         "BLUEFOG_CP_STRIPE_MIN_MB"),
+    Knob("BFT_CP_SOCKBUF_MB", "float", 0.0,
+         "explicit `SO_SNDBUF`/`SO_RCVBUF` of control-plane sockets at both "
+         "ends; `0` keeps the kernel's auto-tuned buffers",
+         "BLUEFOG_CP_SOCKBUF_MB"),
+    Knob("BFT_INCARNATION", "int", 0,
+         "this process's membership incarnation, registered with the "
+         "control plane at attach; a restarted rank attaches with the "
+         "previous value + 1, which fences its predecessor",
+         "BLUEFOG_INCARNATION"),
+    Knob("BFT_NATIVE_SO", "path", None,
+         "path of a prebuilt native control-plane library to load instead "
+         "of building `csrc/bf_runtime.cc` into `bluefog_tpu_torch/_build/`",
+         "BLUEFOG_NATIVE_SO"),
 )
 
 _KNOB_INDEX = {k.name: k for k in KNOBS}

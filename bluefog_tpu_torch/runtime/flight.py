@@ -19,11 +19,17 @@ working directory), in the JAX package's document format: its readers
 form. Every dump carries a wall-clock anchor, so per-rank dumps merge onto
 one axis.
 
+With a control plane attached a dump also carries the native transport's
+own ring (redials, stale frames, striped transfers, failovers) under
+``native``, and its packed form is published to the KV under
+``bf.flight.<rank>``, readable from outside the job. A remote trigger (a
+bump of ``bf.flight.trigger``) makes every rank dump when it next calls
+:func:`poll_remote_trigger`; ``bf.init`` latches the value at attach, so
+only later bumps fire.
+
 Recording is always on (``BFT_FLIGHT_DISABLE=1`` opts out); only dumping
 does I/O. A torn or lost record under a race between threads is an
-acceptable telemetry error, as in the metrics registry. The JAX package's
-remote dump trigger and its native transport ring need a control plane,
-which the port does not have yet.
+acceptable telemetry error, as in the metrics registry.
 """
 
 from __future__ import annotations
@@ -54,6 +60,11 @@ FLOW_F = 6    # flow finish (drain)     (a = bytes, b = flow id)
 
 _KIND_NAMES = {SPAN_B: "B", SPAN_E: "E", INSTANT: "i", COUNTER: "C",
                FLOW_S: "s", FLOW_F: "f"}
+
+# KV keys of the cluster-wide remote trigger and the published tails
+TRIGGER_KEY = "bf.flight.trigger"
+ACK_KEY_FMT = "bf.flight.ack.{rank}"
+DATA_KEY_FMT = "bf.flight.{rank}"
 
 _PACK_MAGIC = b"BFF1"
 
@@ -216,10 +227,11 @@ def reset_for_job() -> None:
     """Fresh ring and clock anchor for a new ``bf.init`` (a dump belongs to
     the job that crashed, not its predecessor); re-reads the disable and
     capacity knobs."""
-    global _recorder, _last_dump
+    global _recorder, _last_dump, _last_trigger
     with _rec_mu:
         _recorder = _new_recorder()
     _last_dump = 0.0
+    _last_trigger = None
 
 
 # -- dumping -----------------------------------------------------------------
@@ -229,25 +241,25 @@ _dump_mu = threading.Lock()
 
 
 def _identity():
+    from . import control_plane as _cp
     from .state import _global_state
 
     st = _global_state()
-    if st.initialized:
-        return st.rank, st.size
-    return 0, 1
+    rank, world = (st.rank, st.size) if st.initialized else (0, 1)
+    return rank, world, _cp.incarnation()
 
 
 def build_dump(reason: str, exc: Optional[BaseException] = None) -> dict:
-    """Assemble the dump document: identity, the ring's tail and a metrics
-    snapshot. Never raises."""
-    rank, world = _identity()
+    """Assemble the dump document: identity, the ring's tail, the native
+    transport's ring and a metrics snapshot. Never raises."""
+    rank, world, inc = _identity()
     doc = {
         "schema": 1,
         "meta": {
             "reason": reason,
             "rank": rank,
             "world": world,
-            "inc": 0,
+            "inc": inc,
             "pid": os.getpid(),
             "ts": time.time(),
             "exception": None if exc is None else "".join(
@@ -255,6 +267,9 @@ def build_dump(reason: str, exc: Optional[BaseException] = None) -> dict:
         },
     }
     doc.update(recorder().snapshot())
+    from . import native as _native
+
+    doc["native"] = _native.flight_events()
     try:
         from . import metrics as _metrics
 
@@ -277,13 +292,16 @@ def unpack_dump(blob: bytes) -> dict:
 
 
 def dump(reason: str = "explicit", exc: Optional[BaseException] = None,
-         path: Optional[str] = None, force: bool = True) -> Optional[str]:
-    """Write the flight dump; returns its path, or None when rate-limited
-    or the write failed. Never raises.
+         path: Optional[str] = None, force: bool = True, publish: bool = True,
+         cl=None) -> Optional[str]:
+    """Write the flight dump and (best-effort, with ``publish``) put its
+    packed form under ``bf.flight.<rank>`` through ``cl`` or the attached
+    control plane; returns the local path, or None when rate-limited or
+    the write failed. Never raises.
 
     ``force=False`` applies the automatic-trigger rate limit
     (``BFT_FLIGHT_MIN_INTERVAL``), so a failure storm cannot spam dumps;
-    explicit dumps bypass it.
+    explicit and remote dumps bypass it.
     """
     global _last_dump
     now = time.monotonic()
@@ -297,16 +315,28 @@ def dump(reason: str = "explicit", exc: Optional[BaseException] = None,
     if path is None:
         path = os.path.join(knob_env("BFT_FLIGHT_DIR") or ".",
                             f"bf_flight_{doc['meta']['rank']}.json")
+    out_path: Optional[str] = None
     try:
         tmp = f"{path}.tmp.{os.getpid()}"
         with open(tmp, "w") as f:
             json.dump(doc, f)
         os.replace(tmp, path)
+        out_path = path
+        logger.error("flight recorder dump (%s) -> %s", reason, path)
     except OSError as e:
         logger.error("flight: local dump to %s failed (%s)", path, e)
-        return None
-    logger.error("flight recorder dump (%s) -> %s", reason, path)
-    return path
+    if publish:
+        from . import control_plane as _cp
+
+        if cl is None and _cp.active():
+            cl = _cp.client()
+        if cl is not None:
+            try:
+                cl.put_bytes(DATA_KEY_FMT.format(rank=doc["meta"]["rank"]),
+                             pack_dump(doc))
+            except (OSError, RuntimeError, ValueError) as e:
+                logger.debug("flight: KV tail publish failed (%s)", e)
+    return out_path
 
 
 def fatal(where: str, exc: BaseException) -> Optional[str]:
@@ -353,9 +383,52 @@ def uninstall_excepthook() -> None:
         _prev_hook = None
 
 
+# -- cluster-wide remote trigger ---------------------------------------------
+
+_last_trigger: Optional[int] = None
+
+
+def latch_trigger(cl) -> None:
+    """Record the CURRENT trigger value as handled (``bf.init`` calls this
+    right after the control plane attaches): a rank joining after an old
+    trigger does not replay it, and every bump after this point fires."""
+    global _last_trigger
+    try:
+        _last_trigger = int(cl.get(TRIGGER_KEY))
+    except (OSError, RuntimeError):  # init must not fail on telemetry
+        _last_trigger = 0
+
+
+def poll_remote_trigger(cl) -> bool:
+    """One poll of the ``bf.flight.trigger`` KV counter. When it moved past
+    the latched value, dump (published to the KV, no rate limit), put the
+    value under ``bf.flight.ack.<rank>`` and return True. The port has no
+    heartbeat or watchdog thread yet to call this periodically: the caller
+    polls."""
+    global _last_trigger
+    try:
+        val = int(cl.get(TRIGGER_KEY))
+    except (OSError, RuntimeError):
+        return False
+    if _last_trigger is None:
+        # no latch ran (no bf.init on this path): latch now
+        _last_trigger = val
+        return False
+    if val <= _last_trigger:
+        return False
+    _last_trigger = val
+    rank, _, _ = _identity()
+    dump(reason=f"remote-trigger #{val}", publish=True, force=True, cl=cl)
+    try:
+        cl.put(ACK_KEY_FMT.format(rank=rank), val)
+    except (OSError, RuntimeError) as e:
+        logger.debug("flight: trigger ack failed (%s)", e)
+    return True
+
+
 # -- chrome-tracing conversion + cross-rank merge ----------------------------
 
-# the JAX package's native transport ring kinds, for reading its dumps
+# the native transport ring's kinds (csrc/bf_runtime.cc kFlight*)
 _NATIVE_KINDS = {1: "redial_attempt", 2: "redial", 3: "stale_frame",
                  4: "stripe", 5: "striped_xfer", 6: "shard_failover"}
 

@@ -4,8 +4,8 @@ Counterpart of ``bluefog_tpu/runtime/logging.py``: one package logger,
 ``bluefog_tpu_torch``, with its level from ``BFT_LOG_LEVEL`` (trace..fatal)
 and timestamps hidden by ``BFT_LOG_HIDE_TIME=1``. Every record carries
 ``[rank r / inc i] `` once ``bf.init`` has run, so the interleaved stderr of
-a ``torchrun`` world stays attributable. The incarnation is 0: the port has
-no control plane yet to restart a rank under a new one.
+a ``torchrun`` world stays attributable; the incarnation is the one the
+control plane registered at attach (``BFT_INCARNATION``, 0 without one).
 """
 
 from __future__ import annotations
@@ -44,12 +44,15 @@ class _RankPrefixFilter(logging.Filter):
     @staticmethod
     def _prefix() -> str:
         try:
-            from .state import _global_state
-
-            st = _global_state()
-            if not st.initialized:
+            # no bf.init ran in a process that never imported the state
+            # module (the standalone shard server runs without torch)
+            state = sys.modules.get(__package__ + ".state")
+            if state is None or not state._global_state().initialized:
                 return ""
-            return f"[rank {st.rank} / inc 0] "
+            from . import control_plane
+
+            return (f"[rank {state._global_state().rank} / inc "
+                    f"{control_plane.incarnation()}] ")
         except Exception:  # noqa: BLE001 — formatting must never raise
             return ""
 

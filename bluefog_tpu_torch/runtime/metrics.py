@@ -8,18 +8,23 @@ Counterpart of ``bluefog_tpu/runtime/metrics.py``:
   right trade for telemetry. Collection is always on.
 * **Packed snapshot** (``BFM1``): the JAX package's wire format byte for
   byte, so either package reads the other's snapshots.
-* **Prometheus**: ``BFT_METRICS_PROM=<path>`` rewrites the text exposition
-  by atomic rename on the ``BFT_METRICS_INTERVAL`` cadence (10 s when only
-  the path is set), from a small cadence thread that ``bf.init`` starts.
-  Each publication also mirrors the gauges onto the timeline's counter
-  tracks.
+* **Publication** on the ``BFT_METRICS_INTERVAL`` cadence (10 s when only
+  ``BFT_METRICS_PROM`` is set), from a small cadence thread that
+  ``bf.init`` starts: the Prometheus text exposition rewritten by atomic
+  rename at ``BFT_METRICS_PROM`` (one file per rank in a world of more
+  than one, :func:`prom_path`), the packed snapshot under
+  ``bf.metrics.<rank>`` in the control plane's KV with the world size
+  under ``bf.metrics.world``, and the gauges mirrored onto the timeline's
+  counter tracks.
+* **Native counters**: with a control plane attached, a snapshot merges
+  the native transport's counters (per-op counts and bytes, redials,
+  striped transfers, the fault injector's counts) as deltas since the
+  job's start, and on the serving rank the server's counter block.
 * **Health**: :func:`health_from_snapshots` merges per-rank snapshots
   (staleness, stragglers by step-counter spread, push-sum mass) and
-  :func:`format_health` renders it, as in the JAX package.
-
-The JAX package also publishes each snapshot to its control plane's KV and
-merges its native transport counters in; the port has no control plane
-yet, so ``cluster_health`` is not part of it.
+  :func:`format_health` renders it; :func:`cluster_health` reads every
+  rank's published snapshot from inside the job, and
+  :func:`read_cluster_health` from any raw client, inside or outside it.
 """
 
 from __future__ import annotations
@@ -146,6 +151,7 @@ class Registry:
         self._counters: Dict[str, Counter] = {}
         self._gauges: Dict[str, Gauge] = {}
         self._hists: Dict[str, Histogram] = {}
+        self._native_base: Dict[str, float] = {}
 
     def counter(self, name: str) -> Counter:
         c = self._counters.get(name)
@@ -173,8 +179,8 @@ class Registry:
         return _Timed(self.histogram(name, bounds))
 
     def reset(self) -> None:
-        """Zero every instrument in place (each ``bf.init`` starts a fresh
-        job's telemetry epoch)."""
+        """Zero every instrument in place and re-baseline the native
+        counters (each ``bf.init`` starts a fresh job's telemetry epoch)."""
         with self._mu:
             for c in self._counters.values():
                 c._reset()
@@ -182,19 +188,37 @@ class Registry:
                 g._reset()
             for h in self._hists.values():
                 h._reset()
+            self._native_base = _native_counters()
 
-    def snapshot(self) -> dict:
-        """Point-in-time view of every instrument."""
+    def snapshot(self, include_native: bool = True) -> dict:
+        """Point-in-time view of every instrument; with a control plane
+        attached (and ``include_native``), the native transport counters
+        merged in as deltas against the last ``reset()``."""
+        from . import control_plane as _cp
+
         meta = {"schema": 1, "ts": time.time(), "rank": _process_index(),
-                "inc": 0}
-        return {
-            "meta": meta,
-            "counters": {n: float(c._v) for n, c in self._counters.items()},
-            "gauges": {n: float(g._v) for n, g in self._gauges.items()},
-            "hists": {n: {"bounds": list(h.bounds), "counts": list(h.counts),
-                          "sum": h.sum, "count": h.count}
-                      for n, h in self._hists.items()},
-        }
+                "inc": _cp.incarnation()}
+        counters = {n: float(c._v) for n, c in self._counters.items()}
+        gauges = {n: float(g._v) for n, g in self._gauges.items()}
+        hists = {n: {"bounds": list(h.bounds), "counts": list(h.counts),
+                     "sum": h.sum, "count": h.count}
+                 for n, h in self._hists.items()}
+        if include_native and _cp.active():
+            base = self._native_base
+            for name, v in _native_counters().items():
+                # the fault injector's counters reset on every arm: raw
+                if name.startswith("cp.fault."):
+                    counters[name] = v
+                else:
+                    counters[name] = v - base.get(name, 0.0)
+            for name, v in _server_stats_flat().items():
+                # live aggregates are gauges, event counts counters
+                if name.rsplit(".", 1)[-1] in _SERVER_GAUGE_FIELDS:
+                    gauges[name] = v
+                else:
+                    counters[name] = v
+        return {"meta": meta, "counters": counters, "gauges": gauges,
+                "hists": hists}
 
 
 _REGISTRY = Registry()
@@ -218,8 +242,8 @@ def timed(name: str, bounds=DEFAULT_BUCKETS) -> _Timed:
     return _REGISTRY.timed(name, bounds)
 
 
-def snapshot() -> dict:
-    return _REGISTRY.snapshot()
+def snapshot(include_native: bool = True) -> dict:
+    return _REGISTRY.snapshot(include_native)
 
 
 def reset_for_job() -> None:
@@ -231,6 +255,58 @@ def _process_index() -> int:
 
     st = _global_state()
     return st.rank if st.initialized else 0
+
+
+def _world_size() -> int:
+    from .state import _global_state
+
+    st = _global_state()
+    return st.size if st.initialized else 1
+
+
+# -- native counter merge ----------------------------------------------------
+
+_SERVER_GAUGE_FIELDS = {"live_connections", "mailbox_records",
+                        "mailbox_bytes", "locks_held", "kv_entries",
+                        "bytes_slots", "bytes_slot_bytes"}
+
+
+def _native_counters() -> Dict[str, float]:
+    """Flattened native client and fault-injector counters (cumulative;
+    empty until the native library is loaded)."""
+    from . import native as _native
+
+    out: Dict[str, float] = {}
+    stats = _native.client_stats()
+    if not stats:
+        return out
+    for group in ("ops", "bytes_out", "bytes_in"):
+        for op, v in stats.get(group, {}).items():
+            out[f"cp.client.{group}.{op}"] = float(v)
+    for k in ("redials", "redial_attempts", "stale_frames",
+              "striped_transfers"):
+        out[f"cp.client.{k}"] = float(stats[k])
+    fault = _native.fault_stats()
+    out["cp.fault.ops"] = float(fault["ops"])
+    out["cp.fault.drops"] = float(fault["drops"])
+    return out
+
+
+def _server_stats_flat() -> Dict[str, float]:
+    """Flattened control-plane server stats (only on the serving rank)."""
+    from . import control_plane as _cp
+
+    srv = _cp._server
+    if srv is None:
+        return {}
+    out: Dict[str, float] = {}
+    stats = srv.stats()
+    for op, v in stats.get("ops", {}).items():
+        out[f"cp.server.ops.{op}"] = float(v)
+    for k, v in stats.items():
+        if k != "ops":
+            out[f"cp.server.{k}"] = float(v)
+    return out
 
 
 # -- packed snapshot wire format --------------------------------------------
@@ -406,9 +482,28 @@ def publication_enabled() -> bool:
 _pub_mu = threading.Lock()
 _last_publish = 0.0
 
+# control-plane KV keys of the published snapshots
+_WORLD_KEY = "bf.metrics.world"
+
+
+def _metrics_key(rank: int) -> str:
+    return f"bf.metrics.{rank}"
+
+
+def prom_path(rank: int, world: int) -> Optional[str]:
+    """The Prometheus file of ``rank``: ``BFT_METRICS_PROM`` itself in a
+    world of one, else ``<root>.<rank><ext>`` of it (``scrape.prom`` ->
+    ``scrape.3.prom``), since the ranks of a host would replace each
+    other's file."""
+    path = knob_env("BFT_METRICS_PROM")
+    if not path or world <= 1:
+        return path
+    root, ext = os.path.splitext(path)
+    return f"{root}.{rank}{ext}"
+
 
 def _write_prom_file(snap: dict) -> None:
-    path = knob_env("BFT_METRICS_PROM")
+    path = prom_path(snap["meta"]["rank"], _world_size())
     if not path:
         return
     try:
@@ -421,17 +516,18 @@ def _write_prom_file(snap: dict) -> None:
                        path, exc)
 
 
-def publish_now() -> dict:
-    """Publish one snapshot unconditionally; returns it."""
-    return _publish(force=True)
+def publish_now(cl=None) -> dict:
+    """Publish one snapshot unconditionally (Prometheus file and, through
+    ``cl`` or the attached control plane, the KV); returns it."""
+    return _publish(cl, force=True)
 
 
-def maybe_publish() -> Optional[dict]:
+def maybe_publish(cl=None) -> Optional[dict]:
     """Interval-gated publish (the cadence thread's tick)."""
-    return _publish(force=False)
+    return _publish(cl, force=False)
 
 
-def _publish(force: bool) -> Optional[dict]:
+def _publish(cl, force: bool) -> Optional[dict]:
     global _last_publish
     interval = publish_interval()
     if not force and interval <= 0:
@@ -444,6 +540,17 @@ def _publish(force: bool) -> Optional[dict]:
     snap = _REGISTRY.snapshot()
     _emit_timeline_counters(snap)
     _write_prom_file(snap)
+    from . import control_plane as _cp
+
+    if cl is None and _cp.active():
+        cl = _cp.client()
+    if cl is not None:
+        try:
+            cl.put_bytes(_metrics_key(snap["meta"]["rank"]),
+                         pack_snapshot(snap))
+            cl.put(_WORLD_KEY, _world_size())
+        except (OSError, RuntimeError) as exc:  # telemetry must not raise
+            logger.debug("metrics publish failed (%s)", exc)
     return snap
 
 
@@ -583,6 +690,54 @@ def health_from_snapshots(snaps: Dict[int, dict], world: int,
             "membership_epoch": epoch,
             "repl": ({"lag": repl_lag, "under_replicated": int(under_repl)}
                      if have_repl else None)}
+
+
+def read_cluster_health(cl, world: Optional[int] = None) -> dict:
+    """The health view from a raw control-plane client: usable from
+    OUTSIDE the job as well as from within. ``world`` defaults to the
+    published ``bf.metrics.world``."""
+    if world is None:
+        world = int(cl.get(_WORLD_KEY)) or 1
+    snaps: Dict[int, dict] = {}
+    for r in range(world):
+        try:
+            blob = cl.get_bytes(_metrics_key(r))
+        except OSError:
+            continue
+        if not blob:
+            continue
+        try:
+            snaps[r] = unpack_snapshot(blob)
+        except (ValueError, struct.error) as exc:
+            logger.warning("metrics: snapshot for rank %d unreadable (%s)",
+                           r, exc)
+    return health_from_snapshots(snaps, world)
+
+
+def cluster_health() -> dict:
+    """The merged cluster health view (:func:`health_from_snapshots`).
+
+    With a control plane attached, every other rank's published snapshot
+    is read from the KV, and this process's own from its live registry
+    (its KV copy can be a publish interval old); without one, the view is
+    this process's registry alone. A rank that never published shows up
+    in ``missing``.
+    """
+    from . import control_plane as _cp
+
+    world = _world_size()
+    me = _process_index()
+    snaps = {me: _REGISTRY.snapshot()}
+    if _cp.active():
+        cl = _cp.client()
+        for r in set(range(world)) - {me}:
+            try:
+                blob = cl.get_bytes(_metrics_key(r))
+                if blob:
+                    snaps[r] = unpack_snapshot(blob)
+            except (OSError, ValueError, struct.error):
+                pass
+    return health_from_snapshots(snaps, world)
 
 
 def format_health(health: dict) -> str:

@@ -13,6 +13,11 @@ as ``torchrun`` sets them), or — with neither — a world of one over a
 ``FileStore`` in a fresh temporary directory (never a fixed port, so
 concurrent jobs on one host cannot collide).
 
+Right after the group forms, ``init`` attaches the control plane when one
+is configured (``runtime/control_plane.py``: a ``torchrun`` world of
+several ranks, or ``BFT_CP_HOST``/``BFT_CP_PORT``); ``shutdown`` detaches
+it after the final metrics publication.
+
 Entry points run on ``cuda`` by default. With no GPU present they raise and
 say to pass ``device="cpu"``; nothing quietly carries on on the CPU.
 """
@@ -29,6 +34,7 @@ import torch
 import torch.distributed as dist
 
 from .. import topology as topology_util
+from . import control_plane as _cp
 from . import flight as _flight
 from . import handles
 from . import metrics as _metrics
@@ -162,12 +168,20 @@ def init(
         torch.cuda.set_device(dev)
     st.device = dev
     _make_subgroups(st)
+    # The control plane, when configured (a torchrun world of several
+    # ranks, or BFT_CP_HOST/BFT_CP_PORT): rank 0 serves, every rank
+    # connects. Before the telemetry reset, so the native transport
+    # counters re-baseline with it.
+    _cp.attach(st.rank, st.size)
     # A fresh telemetry epoch for the job: the instruments zero in place,
     # the flight ring starts anew (a dump belongs to THIS job), and an
     # uncaught exception leaves a dump behind.
     _metrics.reset_for_job()
     _flight.reset_for_job()
     _flight.install_excepthook()
+    if _cp.active():
+        # remote dump triggers bumped from now on fire; older ones do not
+        _flight.latch_trigger(_cp.client())
     st._plan_cache = {}
     st.topology = None
     st.initialized = True
@@ -203,6 +217,7 @@ def shutdown() -> None:
         except Exception:  # noqa: BLE001 — teardown must not raise
             pass
     _metrics.stop_publisher()
+    _cp.detach()
     # close open per-op spans BEFORE the timeline so the trace stays
     # balanced (every B gets its E edge)
     handles.close_all_spans()

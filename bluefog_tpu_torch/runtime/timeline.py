@@ -7,6 +7,9 @@ enables it at ``bf.init``, one file ``<prefix><rank>.json`` per process (the
 port runs one process per rank), or :func:`start_timeline` at run time.
 Every file starts with the ``bf.clock_sync_us`` counter, the wall clock at
 ts=0, so ``scripts/merge_timelines.py`` lays the ranks' files on one axis.
+``Timeline(use_native=True)`` writes through the native library's writer
+(``bf_timeline_*`` of ``csrc/bf_runtime.cc``, built at first use) instead
+of the Python writer thread; the file is the same chrome JSON.
 
 :func:`timeline_context` also opens
 ``torch.profiler.record_function("<name>.<activity>")``, the counterpart of
@@ -39,8 +42,8 @@ class Timeline:
 
     _SENTINEL = object()
 
-    def __init__(self, prefix: str,
-                 process_index: Optional[int] = None) -> None:
+    def __init__(self, prefix: str, process_index: Optional[int] = None,
+                 use_native: bool = False) -> None:
         if process_index is None:
             from .state import _global_state
 
@@ -52,10 +55,25 @@ class Timeline:
         self._pid = pid
         self._closed = False
         self._failed = False  # writer died: stop producing so the queue can't grow
-        self._q: "queue.SimpleQueue" = queue.SimpleQueue()
-        self._writer = threading.Thread(
-            target=self._writer_loop, name="bft-timeline-writer", daemon=True)
-        self._writer.start()
+        self._native = None
+        # serializes native emission against close(): bf_timeline_close
+        # frees the C++ writer under any producer still holding the handle
+        self._native_mu = threading.Lock()
+        if use_native:
+            from . import native as _native
+
+            self._native_lib = _native.load()
+            self._native = self._native_lib.bf_timeline_open(
+                self.path.encode(), pid)
+            if not self._native:
+                raise OSError(f"native timeline writer failed to open "
+                              f"{self.path}")
+        else:
+            self._q: "queue.SimpleQueue" = queue.SimpleQueue()
+            self._writer = threading.Thread(
+                target=self._writer_loop, name="bft-timeline-writer",
+                daemon=True)
+            self._writer.start()
         # Clock-sync anchor: the first event of every trace is a counter
         # carrying the wall-clock microseconds at (about) ts=0.
         self.counter(CLOCK_SYNC_COUNTER, time.time_ns() // 1000)
@@ -66,8 +84,24 @@ class Timeline:
         return (time.perf_counter_ns() - self._t0) / 1e3
 
     def _put(self, ev: dict) -> None:
-        if not (self._failed or self._closed):
+        if self._failed or self._closed:
+            return
+        if self._native is None:
             self._q.put(ev)
+            return
+        with self._native_mu:
+            if self._native is None:
+                return
+            if ev["ph"] == "C":
+                self._native_lib.bf_timeline_event2(
+                    self._native, ev["name"].encode(), ev["cat"].encode(),
+                    b"C", int(ev["ts"]), ev["tid"],
+                    int(ev["args"]["value"]))
+            else:
+                self._native_lib.bf_timeline_event(
+                    self._native, ev.get("name", "").encode(),
+                    ev["cat"].encode(), ev["ph"].encode(), int(ev["ts"]),
+                    ev["tid"])
 
     def activity_start(self, tensor_name: str, activity: str,
                        tid: int = 0) -> None:
@@ -110,6 +144,11 @@ class Timeline:
         if self._closed:
             return
         self._closed = True
+        if self._native is not None:
+            with self._native_mu:
+                handle, self._native = self._native, None
+            self._native_lib.bf_timeline_close(handle)
+            return
         self._q.put(Timeline._SENTINEL)
         self._writer.join(timeout=5.0)
 

@@ -839,6 +839,40 @@ def _timeline(bf, torch, rank: int, world: int, inp) -> dict:
             "log_prefix": np.array(_RankPrefixFilter._prefix())}
 
 
+def _wire(bf, torch, rank: int, world: int, inp) -> dict:
+    """Under a control plane the parent serves (``BFT_CP_HOST``/
+    ``BFT_CP_PORT``, ``BFT_CP_SERVE=0``, ``BFT_INCARNATION``): 3 optimizer
+    steps, a publication, ``cluster_health()`` on every rank, then one
+    remote dump trigger bumped by rank 0 and polled twice by each rank."""
+    from bluefog_tpu_torch.runtime import control_plane as cp
+    from bluefog_tpu_torch.runtime import flight
+    from bluefog_tpu_torch.runtime.logging import _RankPrefixFilter
+
+    x = torch.from_numpy(inp["x"][rank])
+    model = torch.nn.Linear(x.shape[-1], 1)
+    opt = bf.DistributedNeighborAllreduceOptimizer(
+        torch.optim.SGD(model.parameters(), lr=0.1), model,
+        lambda m, b: (m(b) ** 2).mean())
+    for _ in range(3):
+        opt.step(x)
+    bf.metrics.publish_now()
+    bf.barrier()
+    health = bf.cluster_health()
+    bf.barrier()
+    if rank == 0:
+        cp.client().fetch_add(flight.TRIGGER_KEY, 1)
+    bf.barrier()
+    fired = [flight.poll_remote_trigger(cp.client()) for _ in range(2)]
+    return {"active": np.array(cp.active()), "cp_world": np.array(cp.world()),
+            "health_steps": np.array([health["ranks"][r]["step"]
+                                      for r in range(world)]),
+            "health_inc": np.array([health["ranks"][r]["incarnation"]
+                                    for r in range(world)]),
+            "missing": np.array(len(health["missing"])),
+            "fired": np.array(fired),
+            "log_prefix": np.array(_RankPrefixFilter._prefix())}
+
+
 def _examples(tmp_dir: str) -> None:
     """Every example of ``bluefog_tpu_torch/examples/`` (but the
     long-context one) through its entry point, in turn, in this rank of a
@@ -892,7 +926,8 @@ def main() -> None:
            "optimizers": _optimizers, "context": _context,
            "checkpoint": _checkpoint, "expert": _expert,
            "optimization": _optimization, "tensor": _tensor,
-           "pipeline": _pipeline, "timeline": _timeline}[mode](
+           "pipeline": _pipeline, "timeline": _timeline,
+           "wire": _wire}[mode](
                bf, torch, rank, world, inp)
     bf.barrier()
     bf.shutdown()

@@ -96,6 +96,9 @@ _SLICE_NAMES = [
     "DistributedShardedAllreduceOptimizer", "broadcast_optimizer_state",
     # the context-parallel and checkpoint slice (ROADMAP Queue 1, items 2-3)
     "checkpoint",
+    # the wire (Queue 1, item 5(b1)) and the torchvision converters
+    "PeerLostError", "QuorumLostError", "StaleIncarnationError",
+    "cluster_health", "resnet_from_torch", "vgg_from_torch",
 ]
 _PARALLEL_SLICE_NAMES = ["ring_attention", "ring_attention_shard",
                          "ulysses_attention", "ulysses_attention_shard",
@@ -151,8 +154,67 @@ _PORT_ONLY = {"parallel": {"flash_block_bwd", "launch_counts",
               "utils": {"params_from_jax"}}
 _ABSENT_ON_PURPOSE = {"parallel": {"ep_mesh", "tp_mesh", "pp_mesh",
                                    "sequence_sharding"},
-                      "utils": set()}
-_NOT_YET = {"parallel": set(), "utils": set()}
+                      "utils": set(),
+                      # the package's top level: JAX's train state and
+                      # device-mesh placement have no counterpart in one
+                      # process per rank
+                      "top": {"TrainState", "replicate", "unreplicate",
+                              "mesh", "machine_mesh", "rank_sharding",
+                              "shard_rank_stacked"}}
+_NOT_YET = {"parallel": set(), "utils": set(),
+            # ROADMAP Queue 1: 5(b2) failure detection, 6 windows and
+            # push-sum, 8 serving
+            "top": {"dead_controllers", "suspect_controllers", "dead_ranks",
+                    "membership_epoch", "shutdown_requested",
+                    "win_accumulate", "win_accumulate_nonblocking",
+                    "win_associated_p", "win_associated_p_all",
+                    "win_create", "win_fence", "win_free", "win_get",
+                    "win_get_nonblocking", "win_lock", "win_mutex",
+                    "win_poll", "win_put", "win_put_nonblocking",
+                    "win_update", "win_update_then_collect", "win_wait",
+                    "get_win_version", "turn_on_win_ops_with_associated_p",
+                    "turn_off_win_ops_with_associated_p",
+                    "unified_mpi_window_model_supported",
+                    "DistributedWinPutOptimizer",
+                    "DistributedPullGetOptimizer",
+                    "DistributedPushSumOptimizer",
+                    "ServeClient", "serve_client", "RequestShed"}}
+
+
+def _init_names(path: str) -> set:
+    """The public names an ``__init__.py`` binds at its top level (its
+    imports, definitions and assignments), read from its source."""
+    import ast
+
+    with open(path, encoding="utf-8") as f:
+        tree = ast.parse(f.read())
+    names = set()
+    for node in tree.body:
+        if isinstance(node, (ast.Import, ast.ImportFrom)):
+            names.update((a.asname or a.name).split(".")[0]
+                         for a in node.names)
+        elif isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            names.add(node.name)
+        elif isinstance(node, ast.Assign):
+            names.update(t.id for t in node.targets
+                         if isinstance(t, ast.Name))
+    return {n for n in names if not n.startswith("_")}
+
+
+def test_port_top_level_names_against_jax():
+    """The JAX package's top-level names that the port lacks are exactly
+    those absent on purpose and those not yet ported (ROADMAP Queue 1);
+    the port binds none the JAX package lacks."""
+    jax_names = _init_names(os.path.join(_REPO, "bluefog_tpu",
+                                         "__init__.py"))
+    port = _init_names(os.path.join(_REPO, "bluefog_tpu_torch",
+                                    "__init__.py"))
+    assert port - jax_names == set()
+    assert jax_names - port == _ABSENT_ON_PURPOSE["top"] | _NOT_YET["top"]
+    assert len(_ABSENT_ON_PURPOSE["top"]) == 7
+    assert len(_NOT_YET["top"]) == 32
+    for name in ("resnet_from_torch", "vgg_from_torch"):
+        assert getattr(bft, name) is getattr(bft.utils, name)
 
 
 @pytest.mark.parametrize("module", ["parallel", "utils"])
