@@ -44,7 +44,17 @@ from .runtime.state import (
 )
 from .runtime.handles import poll, synchronize, wait
 
-# the control plane's typed failures (runtime/native.py)
+# failure detection, coordinated shutdown and membership across
+# controllers (runtime/heartbeat.py), and the control plane's typed
+# failures (runtime/native.py); a synchronize whose deadline passes with a
+# controller dead raises PeerLostError
+from .runtime.heartbeat import (
+    dead_controllers,
+    dead_ranks,
+    membership_epoch,
+    shutdown_requested,
+    suspect_controllers,
+)
 from .runtime.native import (PeerLostError, QuorumLostError,
                              StaleIncarnationError)
 

@@ -18,8 +18,8 @@ itself under gloo), which its asynchronous save requires.
 
 The world-identity sidecar ``<path>.bf_meta.json`` sits next to the
 directory, with JAX's fields: ``step``, ``world``, ``process_count`` (the
-port's processes, one per rank) and ``topology_crc``. The membership epoch
-is absent until the port has a heartbeat.
+port's processes, one per rank), ``topology_crc`` and ``membership_epoch``
+(``runtime/heartbeat.py``; 0 with no control plane).
 """
 
 from __future__ import annotations
@@ -57,8 +57,9 @@ def _topology_crc(st) -> Optional[int]:
 
 
 def _runtime_meta(step: int) -> dict:
-    """World identity at save time: what ``restore`` checks so that a
-    checkpoint is not silently resumed onto a different world."""
+    """World identity at save time (world size, topology fingerprint,
+    membership epoch): what ``restore`` checks so that a checkpoint is not
+    silently resumed onto a different world."""
     meta = {"step": int(step)}
     st = _global_state()
     if st.initialized:
@@ -67,6 +68,12 @@ def _runtime_meta(step: int) -> dict:
         crc = _topology_crc(st)
         if crc is not None:
             meta["topology_crc"] = crc
+        try:
+            from .runtime.heartbeat import membership_epoch
+
+            meta["membership_epoch"] = int(membership_epoch())
+        except Exception:  # noqa: BLE001 — the sidecar must still be written
+            pass
     return meta
 
 

@@ -16,12 +16,16 @@ every process derives the same combine matrix W from the same arguments:
     (a scalar or per-rank dict; a flat {src: w} or a per-rank nested dict)
   * dynamic ``send_neighbors`` (every rank's destination list) -> per-step
     edge sets; receiving weights must be supplied, and
-    ``enable_topo_check`` validates the send/recv pattern locally.
+    ``enable_topo_check`` validates the send/recv pattern locally and,
+    with a control plane of several controllers, agrees the step's
+    combine matrix across them (:func:`cross_controller_topo_check`).
 """
 
 from __future__ import annotations
 
 import contextlib
+import hashlib
+import time
 from typing import Dict, List, Optional, Sequence, Union
 
 import numpy as np
@@ -29,7 +33,9 @@ import torch
 import torch.distributed as dist
 
 from .. import topology as topology_util
+from ..runtime import control_plane as _cp
 from ..runtime import handles as _handles
+from ..runtime.config import knob_env
 from ..runtime.state import _global_state
 from ..runtime.timeline import timeline_context
 from .plan import CombinePlan, _acc_dtype, spmd_combine_start
@@ -160,7 +166,127 @@ def _dynamic_weight_matrix(size: int, send_neighbors, self_weight,
         W[dst, dst] = sw_list[dst]
         for src, w in nw_per_rank[dst].items():
             W[src, dst] = w
+    if enable_topo_check:
+        cross_controller_topo_check(W)
     return W
+
+
+def _w_hash(W: np.ndarray) -> str:
+    return hashlib.sha1(np.ascontiguousarray(W).tobytes()).hexdigest()[:24]
+
+
+def cross_controller_topo_check(W: Optional[np.ndarray],
+                                w_hash: Optional[str] = None) -> None:
+    """Check that every controller computed the SAME dynamic combine matrix.
+
+    The reference's ``enable_topo_check`` all-gathers the send/recv pattern
+    across processes each dynamic step (mpi_controller.cc:296-345). Here
+    each controller checks in a hash of its step's W under a per-hash key
+    on the control plane and waits until all ``world`` controllers have:
+    agreement is everyone writing the SAME hash's keys, so equality needs
+    no second exchange; divergence is a controller waiting on keys its
+    peers never write, and the bounded wait (``BFT_TOPO_CHECK_TIMEOUT``)
+    raises instead of letting different edge sets corrupt the exchange.
+    Only with a control plane of more than one controller.
+
+    Each distinct W pays this once per process: agreed hashes are kept on
+    the runtime state (reset at ``init``/``set_topology``), so warm steps
+    of a cyclic schedule cost nothing. The cache alone cannot see two
+    controllers at DIFFERENT positions of the same cyclic schedule, whose
+    matrices were each agreed before; so every ``BFT_TOPO_CHECK_REARM``
+    (50; 0 disables) checked calls the rendezvous runs again
+    (:func:`_rearm_rendezvous`), paired by a server-side ticket counter,
+    not by local call counts. The keys and values are the JAX package's
+    (``tc.<hash>.<pid>``, ``tc.rearm.<pid>``, ``tc.rearm.tickets``), so the
+    two packages' controllers check against each other.
+    """
+    if not (_cp.active() and _cp.world() > 1):
+        return
+    st = _global_state()
+    h = w_hash if w_hash is not None else _w_hash(W)
+    st._topo_check_calls += 1
+    rearm_every = int(knob_env("BFT_TOPO_CHECK_REARM"))
+    rearm = rearm_every > 0 and st._topo_check_calls % rearm_every == 0
+    timeout = float(knob_env("BFT_TOPO_CHECK_TIMEOUT"))
+    me = _cp.process_index()
+    if h not in st._topo_check_agreed:
+        cl = _cp.client()
+        world = _cp.world()
+        # First agreement on a NEW matrix: an idempotent check-in, one key
+        # per controller (not a shared counter), so a controller retrying
+        # after a failed rendezvous cannot inflate the count into false
+        # agreement. One key set per DISTINCT matrix, bounded by the
+        # schedule's period; the keys live as long as the server.
+        tag = f"tc.{h}"
+        cl.put(f"{tag}.{me}", 1)
+        keys = [f"{tag}.{p}" for p in range(world)]
+        deadline = time.monotonic() + timeout
+        while True:
+            agreed = sum(1 for v in cl.get_many(keys) if v)
+            if agreed >= world:
+                st._topo_check_agreed.add(h)
+                break
+            if time.monotonic() >= deadline:
+                raise RuntimeError(
+                    f"cross-controller topology check failed: controller "
+                    f"{me} computed combine-matrix hash {h} but only "
+                    f"{agreed}/{world} controllers agreed within "
+                    f"{timeout:.0f}s — controllers are dispatching "
+                    "DIFFERENT dynamic edge sets (check the per-step "
+                    "send_neighbors/neighbor_weights derivation, or set "
+                    "enable_topo_check=False to skip)")
+            time.sleep(0.02)
+    if rearm:
+        _rearm_rendezvous(h, timeout)
+
+
+_H40_MASK = (1 << 40) - 1
+
+
+def _rearm_rendezvous(h: str, timeout: float) -> None:
+    """Periodic re-agreement that catches phase-shifted cyclic schedules.
+
+    Every controller posts (round+1, 40-bit hash prefix) packed into its
+    own fixed key ``tc.rearm.<pid>`` (the +1 keeps 0 = "never checked
+    in") and waits until every peer's value is the same round with the
+    SAME hash, or a LATER round (a peer passes round r only after everyone
+    checked in at r with a matching hash). Same round with a different
+    hash means the controllers are issuing different steps of the
+    schedule: raise. The round comes from a shared ``fetch_add`` ticket
+    (``ticket // world``), so pairing is by global arrival order.
+    """
+    cl = _cp.client()
+    world = _cp.world()
+    me = _cp.process_index()
+    rnd = cl.fetch_add("tc.rearm.tickets", 1) // world
+    h40 = int(h[:10], 16) & _H40_MASK
+    cl.put(f"tc.rearm.{me}", ((rnd + 1) << 40) | h40)
+    keys = [f"tc.rearm.{p}" for p in range(world)]
+    deadline = time.monotonic() + timeout
+    while True:
+        agreed = 0
+        for p, v in zip(range(world), cl.get_many(keys)):
+            peer_rnd, peer_h40 = (v >> 40) - 1, v & _H40_MASK
+            if v and peer_rnd == rnd and peer_h40 != h40:
+                raise RuntimeError(
+                    f"cross-controller topology re-check failed: at re-arm "
+                    f"round {rnd} controller {me} holds combine-matrix hash "
+                    f"{h} but controller {p} checked in a DIFFERENT matrix "
+                    "— controllers are de-synced inside the dynamic "
+                    "schedule (phase-shifted cyclic edge sets), or "
+                    "BFT_TOPO_CHECK_REARM differs across controllers")
+            if v and peer_rnd >= rnd:
+                agreed += 1
+        if agreed >= world:
+            return
+        if time.monotonic() >= deadline:
+            raise RuntimeError(
+                f"cross-controller topology re-check failed: controller "
+                f"{me} waited {timeout:.0f}s at re-arm round {rnd} (hash "
+                f"{h}) with only {agreed}/{world} controllers checked in — "
+                "a peer is stalled, crashed, or running with a different "
+                "BFT_TOPO_CHECK_REARM cadence")
+        time.sleep(0.02)
 
 
 def _freeze(obj):
@@ -184,8 +310,8 @@ def neighbor_plan(self_weight=None, neighbor_weights=None,
     st.check_initialized()
     key = ("nar", _freeze(send_neighbors), _freeze(self_weight),
            _freeze(neighbor_weights), bool(enable_topo_check), force_gather)
-    plan = st._plan_cache.get(key)
-    if plan is None:
+    cached = st._plan_cache.get(key)
+    if cached is None:
         with timeline_context(op_name, "PLAN_BUILD") if op_name else \
                 contextlib.nullcontext():
             if send_neighbors is None:
@@ -197,7 +323,16 @@ def neighbor_plan(self_weight=None, neighbor_weights=None,
             plan = CombinePlan(W, force_gather=force_gather)
         if len(st._plan_cache) > 4096:  # unbounded dynamic schedules
             st._plan_cache.clear()
-        st._plan_cache[key] = plan
+        # with the matrix's hash, which a cache hit of a checked dynamic
+        # step hands to the cross-controller check
+        st._plan_cache[key] = (plan, _w_hash(W)
+                               if send_neighbors is not None else None)
+        return plan
+    plan, h = cached
+    if send_neighbors is not None and enable_topo_check:
+        # cache-hit steps still count toward (and trigger) the periodic
+        # cross-controller re-arm: see cross_controller_topo_check
+        cross_controller_topo_check(None, w_hash=h)
     return plan
 
 

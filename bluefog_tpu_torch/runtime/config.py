@@ -169,6 +169,67 @@ KNOBS: Tuple[Knob, ...] = (
          "path of a prebuilt native control-plane library to load instead "
          "of building `csrc/bf_runtime.cc` into `bluefog_tpu_torch/_build/`",
          "BLUEFOG_NATIVE_SO"),
+    # -- failure detection (runtime/heartbeat.py, watchdog.py, handles.py,
+    #    ops/neighbors.py) ---------------------------------------------------
+    Knob("BFT_HEARTBEAT_INTERVAL", "float", 5.0,
+         "seconds between controller heartbeats (jobs of more than one "
+         "process on a control plane)", "BLUEFOG_HEARTBEAT_INTERVAL"),
+    Knob("BFT_HEARTBEAT_TIMEOUT", "float", 30.0,
+         "silent-peer threshold: after this many seconds a controller lands "
+         "in `bf.dead_controllers()`", "BLUEFOG_HEARTBEAT_TIMEOUT"),
+    Knob("BFT_SHUTDOWN_GRACE", "float", None,
+         "how long `bf.shutdown()` waits for peers to ack the coordinated "
+         "shutdown flag (default 3x the heartbeat interval)",
+         "BLUEFOG_SHUTDOWN_GRACE"),
+    Knob("BFT_SYNC_TIMEOUT", "float", None,
+         "default deadline (seconds) of `bf.synchronize`/`bf.wait`: on "
+         "expiry raise with the failure detector's diagnosis (dead peers "
+         "named) instead of waiting on", "BLUEFOG_SYNC_TIMEOUT"),
+    Knob("BFT_TOPO_CHECK_TIMEOUT", "float", 30.0,
+         "seconds the cross-controller dynamic-topology hash rendezvous "
+         "waits before declaring divergence", "BLUEFOG_TOPO_CHECK_TIMEOUT"),
+    Knob("BFT_TOPO_CHECK_REARM", "int", 50,
+         "every K topology-checked dynamic steps the rendezvous runs again "
+         "at a server-assigned round (`0` disables); set it identically on "
+         "every controller", "BLUEFOG_TOPO_CHECK_REARM"),
+    Knob("BFT_CYCLE_TIME", "float", 0.5,
+         "ms; poll cadence of the stall watchdog thread (floored at 1 s)",
+         "BLUEFOG_CYCLE_TIME"),
+    Knob("BFT_STALL_WARNING_TIME", "float", 60.0,
+         "seconds an outstanding handle may stay unfinished before the "
+         "watchdog warns about it (once)", "BLUEFOG_STALL_WARNING_TIME"),
+    # -- the live telemetry plane (runtime/timeseries.py, tuner.py) ---------
+    Knob("BFT_TS_INTERVAL", "float", None,
+         "seconds between time-series publications (`bf.ts.<rank>`); unset: "
+         "the `BFT_METRICS_INTERVAL` cadence, else 5 s; `0` never "
+         "publishes (sampling stays on)", "BLUEFOG_TS_INTERVAL"),
+    Knob("BFT_TS_DISABLE", "bool", False,
+         "`1` turns the time-series plane (ring history, per-edge "
+         "estimators, alert rules) off", "BLUEFOG_TS_DISABLE"),
+    Knob("BFT_ALERT_RULES", "spec", None,
+         "override or extend the alert rules, comma-separated "
+         "`name:series>value:for=SEC` terms (`name:off` disables a default)",
+         "BLUEFOG_ALERT_RULES"),
+    Knob("BFT_SLO", "spec", None,
+         "serving SLO declarations, comma-separated `kind:target@window` "
+         "terms (`serve_p99:50ms@5m`, `serve_avail:99.9@1h`, ...); unset "
+         "disables the SLO engine", "BLUEFOG_SLO"),
+    Knob("BFT_SLO_BURN", "float", 2.0,
+         "burn-rate threshold of an SLO alert (both the fast and the 12x "
+         "slow window must burn faster than this)", "BLUEFOG_SLO_BURN"),
+    Knob("BFT_TUNE", "bool", False,
+         "`1` turns on the rank-local performance controller (codec "
+         "escalation, plane floor, straggler demotion); `0` takes no KV "
+         "reads and changes nothing", "BLUEFOG_TUNE"),
+    Knob("BFT_TUNE_INTERVAL", "float", 5.0,
+         "seconds between controller ticks when `BFT_TUNE=1` (floored at "
+         "0.5 s; the tick rides the heartbeat and sampler)",
+         "BLUEFOG_TUNE_INTERVAL"),
+    Knob("BFT_TUNE_RULES", "spec", None,
+         "override the controller's thresholds, comma-separated "
+         "`key=value` terms (`slow_ratio`, `min_bps`, `transit_p99_ms`, "
+         "`slow_for`, `straggler_for`, `dwell`, `deesc_norm`, `keep_in`)",
+         "BLUEFOG_TUNE_RULES"),
 )
 
 _KNOB_INDEX = {k.name: k for k in KNOBS}

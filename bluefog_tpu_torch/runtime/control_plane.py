@@ -37,13 +37,17 @@ from typing import List, Optional
 from .config import knob_env
 from .logging import logger
 from .native import (ControlPlaneClient, ControlPlaneServer,
-                     StaleIncarnationError)
+                     StaleIncarnationError, export_native_knobs,
+                     restore_native_knobs)
 from .router import ShardRouter, parse_endpoints
 
 _mu = threading.Lock()
 _client = None  # ControlPlaneClient (1 endpoint) or ShardRouter (N shards)
 _server: Optional[ControlPlaneServer] = None
 _servers: list = []  # in-process shard servers (BFT_CP_SHARDS > 1)
+# the environment's own values of the native-scope knob names while the
+# in-process shard servers hold the BFT_* values under them
+_knobs_saved: Optional[dict] = None
 _world: int = 1
 _tried = False
 _conn_params = None  # (host, port, rank, secret) of the live attachment
@@ -178,10 +182,13 @@ def attach(rank: Optional[int] = None, world: Optional[int] = None):
 
 
 def _stop_servers() -> None:
-    global _servers
+    global _servers, _knobs_saved
     for srv in _servers:
         srv.stop()
     _servers = []
+    if _knobs_saved is not None:
+        restore_native_knobs(_knobs_saved)
+        _knobs_saved = None
 
 
 def _attach_sharded(hosts_spec, shards, host, port, rank, world, secret):
@@ -189,7 +196,8 @@ def _attach_sharded(hosts_spec, shards, host, port, rank, world, secret):
     over N endpoints, the N shards served in-process on rank 0 when they
     are derived from one host/port, and every shard's mailbox cap checked
     to agree. Returns the router, or None."""
-    global _client, _servers, _world, _conn_params, _endpoints, _incarnation
+    global _client, _servers, _world, _conn_params, _endpoints, \
+        _incarnation, _knobs_saved
     if hosts_spec:
         try:
             endpoints = parse_endpoints(hosts_spec)
@@ -209,6 +217,11 @@ def _attach_sharded(hosts_spec, shards, host, port, rank, world, secret):
 
     if serve_here:
         served_cap = int(float(knob_env("BFT_CP_MAILBOX_MAX_MB")) * (1 << 20))
+        # the shards' replication threads read the native-scope knobs
+        # whenever they dial a successor, long after any scoped call has
+        # ended: hold the BFT_* values under the library's names for the
+        # servers' life (_stop_servers puts the environment back)
+        _knobs_saved = export_native_knobs()
         try:
             for _, p in endpoints:
                 _servers.append(ControlPlaneServer(
@@ -322,14 +335,24 @@ def incarnation() -> int:
     return _incarnation
 
 
-def owned_ranks() -> List[int]:
-    """The ranks whose keys this process writes: its own, one process per
-    rank."""
+def process_index() -> int:
+    """This process's controller index: its control-plane rank while one
+    is attached, else its rank in the process group (the two agree unless
+    ``BFT_CP_RANK`` says otherwise)."""
     if _conn_params is not None:
-        return [_conn_params[2]]
+        return _conn_params[2]
     from .state import _global_state
 
-    return [_global_state().rank]
+    st = _global_state()
+    return st.rank if st.initialized else 0
+
+
+def owned_ranks(process_index_: Optional[int] = None) -> List[int]:
+    """The ranks whose keys controller ``process_index_`` (default: this
+    process) writes: its own rank, one process per rank. Its argument
+    makes it the projection of a controller onto its ranks, as JAX's
+    ``owned_ranks(devices, pidx)`` is."""
+    return [process_index() if process_index_ is None else process_index_]
 
 
 # Monotone membership-epoch counter: bumped by the SERVER on every

@@ -6,7 +6,9 @@ spans, instants, counters and flow events in preallocated numpy columns
 snapshot when something goes wrong:
 
   * a fatal exception escaping an optimizer step,
-  * a failed transfer surfacing in ``synchronize``,
+  * a failed transfer surfacing in ``synchronize``, or its deadline
+    passing with a controller dead,
+  * a stall the watchdog flags (``runtime/watchdog.py``),
   * an uncaught exception unwinding the process (the ``sys.excepthook``
     chain ``bf.init`` installs and ``bf.shutdown`` restores),
   * an explicit ``bf.flight_dump()``.
@@ -23,9 +25,10 @@ With a control plane attached a dump also carries the native transport's
 own ring (redials, stale frames, striped transfers, failovers) under
 ``native``, and its packed form is published to the KV under
 ``bf.flight.<rank>``, readable from outside the job. A remote trigger (a
-bump of ``bf.flight.trigger``) makes every rank dump when it next calls
-:func:`poll_remote_trigger`; ``bf.init`` latches the value at attach, so
-only later bumps fire.
+bump of ``bf.flight.trigger``) makes every rank dump at its next
+:func:`poll_remote_trigger`, which the heartbeat's tick (or, in a job of
+one controller, the stall watchdog's cycle) calls; ``bf.init`` latches the
+value at attach, so only later bumps fire.
 
 Recording is always on (``BFT_FLIGHT_DISABLE=1`` opts out); only dumping
 does I/O. A torn or lost record under a race between threads is an
@@ -152,14 +155,17 @@ class FlightRecorder:
 
     # -- snapshot ----------------------------------------------------------
 
+    def _wall_us(self, t_perf_ns):
+        """Wall-clock microseconds of a recorded ``perf_counter_ns``."""
+        return self._anchor_wall_us + (t_perf_ns - self._anchor_perf_ns) / 1e3
+
     def snapshot(self) -> dict:
         """Decode the ring oldest to newest into plain lists."""
         n = self._n
         cap = self._mask + 1
         count = min(n, cap)
         idx = (n - count + np.arange(count)) & self._mask
-        wall = self._anchor_wall_us + \
-            (self._t[idx] - self._anchor_perf_ns) / 1e3
+        wall = self._wall_us(self._t[idx])
         return {
             "schema": 1,
             "anchor": {"wall_us": self._anchor_wall_us},
@@ -242,11 +248,10 @@ _dump_mu = threading.Lock()
 
 def _identity():
     from . import control_plane as _cp
-    from .state import _global_state
+    from . import metrics as _metrics
 
-    st = _global_state()
-    rank, world = (st.rank, st.size) if st.initialized else (0, 1)
-    return rank, world, _cp.incarnation()
+    return (_metrics._process_index(), _metrics._world_size(),
+            _cp.incarnation())
 
 
 def build_dump(reason: str, exc: Optional[BaseException] = None) -> dict:
@@ -386,6 +391,7 @@ def uninstall_excepthook() -> None:
 # -- cluster-wide remote trigger ---------------------------------------------
 
 _last_trigger: Optional[int] = None
+_trigger_mu = threading.Lock()
 
 
 def latch_trigger(cl) -> None:
@@ -402,21 +408,23 @@ def latch_trigger(cl) -> None:
 def poll_remote_trigger(cl) -> bool:
     """One poll of the ``bf.flight.trigger`` KV counter. When it moved past
     the latched value, dump (published to the KV, no rate limit), put the
-    value under ``bf.flight.ack.<rank>`` and return True. The port has no
-    heartbeat or watchdog thread yet to call this periodically: the caller
-    polls."""
+    value under ``bf.flight.ack.<rank>`` and return True. The heartbeat's
+    tick polls it (the stall watchdog's cycle in a job of one controller);
+    a caller may poll as well: of two concurrent polls of one bump,
+    exactly one fires."""
     global _last_trigger
     try:
         val = int(cl.get(TRIGGER_KEY))
     except (OSError, RuntimeError):
         return False
-    if _last_trigger is None:
-        # no latch ran (no bf.init on this path): latch now
+    with _trigger_mu:
+        if _last_trigger is None:
+            # no latch ran (no bf.init on this path): latch now
+            _last_trigger = val
+            return False
+        if val <= _last_trigger:
+            return False
         _last_trigger = val
-        return False
-    if val <= _last_trigger:
-        return False
-    _last_trigger = val
     rank, _, _ = _identity()
     dump(reason=f"remote-trigger #{val}", publish=True, force=True, cl=cl)
     try:

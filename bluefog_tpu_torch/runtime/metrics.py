@@ -226,6 +226,10 @@ _REGISTRY = Registry()
 
 # module-level conveniences (the instrumented modules' entry points)
 
+def registry() -> Registry:
+    return _REGISTRY
+
+
 def counter(name: str) -> Counter:
     return _REGISTRY.counter(name)
 
@@ -251,15 +255,22 @@ def reset_for_job() -> None:
 
 
 def _process_index() -> int:
-    from .state import _global_state
+    """This process's controller index (its control-plane rank while one
+    is attached, else its rank): the ``<rank>`` of the KV keys and files
+    it publishes."""
+    from . import control_plane as _cp
 
-    st = _global_state()
-    return st.rank if st.initialized else 0
+    return _cp.process_index()
 
 
 def _world_size() -> int:
+    """The number of controllers: the control plane's world while one is
+    attached, else the process group's size."""
+    from . import control_plane as _cp
     from .state import _global_state
 
+    if _cp.active():
+        return _cp.world()
     st = _global_state()
     return st.size if st.initialized else 1
 
@@ -567,7 +578,9 @@ def _emit_timeline_counters(snap: dict) -> None:
 
 
 class _Publisher:
-    """Cadence thread publishing on ``BFT_METRICS_INTERVAL``."""
+    """Cadence thread publishing on ``BFT_METRICS_INTERVAL``, for jobs
+    without a heartbeat monitor (one controller): with several, the
+    heartbeat's tick carries :func:`maybe_publish` instead."""
 
     def __init__(self) -> None:
         self._stop = threading.Event()
@@ -590,6 +603,11 @@ class _Publisher:
         while not self._stop.wait(max(0.2, publish_interval() / 2.0)):
             try:
                 maybe_publish()
+                # the time-series plane samples on the same cadence
+                # (heartbeat jobs ride the monitor's tick instead)
+                from . import timeseries as _ts
+
+                _ts.maybe_sample()
             except Exception as exc:  # noqa: BLE001 — observability thread
                 logger.debug("metrics publisher tick failed (%s)", exc)
 
@@ -597,11 +615,11 @@ class _Publisher:
 _publisher: Optional[_Publisher] = None
 
 
-def start_publisher_if_needed() -> None:
-    """Called by ``bf.init``: start the cadence thread when publication is
-    enabled."""
+def start_publisher_if_needed(has_heartbeat: bool) -> None:
+    """Called by ``bf.init``: start the cadence thread only when
+    publication is enabled AND no heartbeat monitor exists to ride on."""
     global _publisher
-    if not publication_enabled():
+    if not publication_enabled() or has_heartbeat:
         return
     if _publisher is None:
         _publisher = _Publisher()

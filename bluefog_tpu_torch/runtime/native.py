@@ -19,9 +19,11 @@ The library reads six knobs itself (``scope="native"`` in
 ``runtime/config.py``) under their JAX names. The port's ``BFT_*`` values
 reach it under those names for the duration of each call that reads them
 (:func:`_native_knobs`), and a stray ``BLUEFOG_*`` value without its
-``BFT_*`` twin is hidden from it; the standalone shard server exports them
-for its whole life (:func:`export_native_knobs`), since its replication
-threads read them later, outside any call.
+``BFT_*`` twin is hidden from it. Shard servers export them for as long as
+they serve (:func:`export_native_knobs`): the standalone shard server for
+its whole life, the in-process shards of ``BFT_CP_SHARDS > 1`` until
+detach, since their replication threads read them later, outside any
+call.
 """
 
 from __future__ import annotations
@@ -56,16 +58,36 @@ class PeerLostError(RuntimeError):
 
     Raised instead of hanging when a lock holder's connection closed (or
     its lease expired), a barrier's bounded wait hit its deadline, or a
-    critical section was force-broken mid-hold. ``dead`` is the set of
-    dead controllers at raise time; it stays empty until the port has a
-    heartbeat monitor to fill it.
+    critical section was force-broken mid-hold; and by ``synchronize``
+    when its deadline passes with a controller dead. ``dead`` carries the
+    heartbeat monitor's dead-controller set at raise time (it may still be
+    empty when the server noticed the death before a heartbeat timeout
+    elapsed).
     """
 
     def __init__(self, message: str, dead=()) -> None:
         self.dead = set(dead)
         if self.dead:
-            message += f" [dead controller(s) {sorted(self.dead)}]"
+            message += (f" [dead controller(s) {sorted(self.dead)} per "
+                        "bf.dead_controllers()]")
         super().__init__(message)
+
+
+def _dead_controller_set() -> set:
+    """The heartbeat monitor's current dead set (empty when unavailable).
+
+    Imported lazily: heartbeat -> control_plane -> native is the module
+    load order, so a top-level import here would be circular."""
+    try:
+        from .heartbeat import dead_controllers
+
+        return dead_controllers()
+    except Exception:  # noqa: BLE001 — raise-path helper must not mask
+        return set()
+
+
+def _peer_lost(message: str) -> PeerLostError:
+    return PeerLostError(message, dead=_dead_controller_set())
 
 
 class StaleIncarnationError(RuntimeError):
@@ -626,12 +648,24 @@ def _native_knobs():
                 _set_env(name, value)
 
 
-def export_native_knobs() -> None:
-    """Put the native-scope knobs under their native names for the rest of
-    this process's life (the standalone shard server: its replication
-    threads read them outside any call)."""
-    for name, value in native_knob_values().items():
-        _set_env(name, value)
+def export_native_knobs() -> dict:
+    """Put the native-scope knobs under their native names until
+    :func:`restore_native_knobs` (the shard servers: their replication
+    threads read them outside any call). Returns the environment's own
+    values of those names."""
+    with _env_mu:
+        saved = {}
+        for name, value in native_knob_values().items():
+            saved[name] = os.environ.get(name)
+            _set_env(name, value)
+    return saved
+
+
+def restore_native_knobs(saved: dict) -> None:
+    """Put back the values :func:`export_native_knobs` returned."""
+    with _env_mu:
+        for name, value in saved.items():
+            _set_env(name, value)
 
 
 def _library_path() -> Path:
@@ -1154,7 +1188,7 @@ class ControlPlaneClient:
         r = self._lib.bf_cp_barrier(self._h, name.encode())
         self._check_stale(r)
         if r == _DEAD_HOLDER:
-            raise PeerLostError(
+            raise _peer_lost(
                 f"barrier '{name}' abandoned: a participant never arrived "
                 "within BFT_CP_BARRIER_TIMEOUT (peer crashed or "
                 "partitioned)")
@@ -1170,7 +1204,7 @@ class ControlPlaneClient:
         if r == _DEAD_HOLDER:
             # the lock was left FREE: after handling the error a fresh
             # acquire succeeds
-            raise PeerLostError(
+            raise _peer_lost(
                 f"lock '{name}': the holder died while we waited (its "
                 "connection closed or its BFT_CP_LOCK_LEASE expired); "
                 "the lock was force-released")
@@ -1183,7 +1217,7 @@ class ControlPlaneClient:
         self._check_stale(r)
         self._check_quorum(r, f"unlock '{name}'")
         if r == _DEAD_HOLDER:
-            raise PeerLostError(
+            raise _peer_lost(
                 f"unlock '{name}': this client no longer held the lock — "
                 "it was force-released mid-hold (lease expiry or a "
                 "connection drop), so the critical section was broken")

@@ -440,12 +440,16 @@ def main(argv=None) -> int:
                                "(%s); routers will not re-route until an "
                                "operator republishes it", args.shard, exc)
 
+    # a graceful stop may come as soon as the marker is out: handle it
+    # from before the marker on
+    done = threading.Event()
+    for sig in (signal.SIGTERM, signal.SIGINT):
+        signal.signal(sig, lambda *_: done.set())
     print(f"{READY_MARKER} {srv.port}", flush=True)
     logger.info("control-plane shard %d serving on port %d (world %d, "
                 "mailbox cap %d bytes)", args.shard, srv.port, args.world,
                 cap)
 
-    done = threading.Event()
     if peers and nt:
         # Alive keeper: a router whose redirect-verify dial loses a race
         # under a connect storm can FALSELY publish an odd (dead)
@@ -551,8 +555,6 @@ def main(argv=None) -> int:
         # graceful SIGTERM.
         threading.Thread(target=_alive_keeper, daemon=True,
                          name="bf-shard-alive").start()
-    for sig in (signal.SIGTERM, signal.SIGINT):
-        signal.signal(sig, lambda *_: done.set())
     done.wait()
     srv.stop()
     return 0

@@ -16,7 +16,13 @@ concurrent jobs on one host cannot collide).
 Right after the group forms, ``init`` attaches the control plane when one
 is configured (``runtime/control_plane.py``: a ``torchrun`` world of
 several ranks, or ``BFT_CP_HOST``/``BFT_CP_PORT``); ``shutdown`` detaches
-it after the final metrics publication.
+it after the final metrics publication. ``init`` then starts the stall
+watchdog (``runtime/watchdog.py``) and, with a control plane of more than
+one controller, the heartbeat monitor (``runtime/heartbeat.py``); a
+process restarted with ``BFT_INCARNATION > 0`` enters quarantine.
+``shutdown`` announces itself to the peers before its final flush and
+stops the monitor before the control plane detaches, as the JAX package
+does (``bluefog_tpu/runtime/state.py:306-352``).
 
 Entry points run on ``cuda`` by default. With no GPU present they raise and
 say to pass ``device="cpu"``; nothing quietly carries on on the CPU.
@@ -37,9 +43,13 @@ from .. import topology as topology_util
 from . import control_plane as _cp
 from . import flight as _flight
 from . import handles
+from . import heartbeat as _heartbeat
 from . import metrics as _metrics
+from . import timeseries as _timeseries
+from . import tuner as _tuner
 from .config import knob_env
 from .logging import logger
+from .watchdog import StallWatchdog
 
 
 def resolve_device(device=None) -> torch.device:
@@ -76,7 +86,17 @@ class _State:
         # the gloo group ``checkpoint`` coordinates over, made at first use
         self.checkpoint_group = None
         self.timeline = None
+        self.watchdog: Optional[StallWatchdog] = None
+        self.peer_monitor: Optional[_heartbeat.PeerMonitor] = None
+        # the window table the tuner's levers act on; empty until the
+        # window layer is ported
+        self.windows: dict = {}
         self._plan_cache: dict = {}
+        # hashes of dynamic combine matrices every controller agreed on,
+        # and the re-arm cadence counter
+        # (ops.neighbors.cross_controller_topo_check)
+        self._topo_check_agreed: set = set()
+        self._topo_check_calls = 0
 
     def check_initialized(self) -> None:
         if not self.initialized:
@@ -168,21 +188,38 @@ def init(
         torch.cuda.set_device(dev)
     st.device = dev
     _make_subgroups(st)
+    if not owns and st.size > 1:
+        # Joining a group formed outside init, which an earlier init of
+        # this job may have used: rank 0 may still be stopping that init's
+        # control-plane server. Meet first, so every rank attaches to the
+        # server this init starts and never reads the last one's keys
+        # (shutdown flags, agreed topologies).
+        dist.barrier()
     # The control plane, when configured (a torchrun world of several
     # ranks, or BFT_CP_HOST/BFT_CP_PORT): rank 0 serves, every rank
     # connects. Before the telemetry reset, so the native transport
     # counters re-baseline with it.
     _cp.attach(st.rank, st.size)
     # A fresh telemetry epoch for the job: the instruments zero in place,
-    # the flight ring starts anew (a dump belongs to THIS job), and an
-    # uncaught exception leaves a dump behind.
+    # the time-series plane and the tuner start anew (re-reading their
+    # knobs), the flight ring starts anew (a dump belongs to THIS job), and
+    # an uncaught exception leaves a dump behind.
     _metrics.reset_for_job()
+    _timeseries.reset_for_job()
+    _tuner.reset_for_job()
     _flight.reset_for_job()
     _flight.install_excepthook()
     if _cp.active():
         # remote dump triggers bumped from now on fire; older ones do not
         _flight.latch_trigger(_cp.client())
+    # A restarted rank (BFT_INCARNATION > 0) attached with a bumped
+    # incarnation above (the server fenced its zombie predecessor); it is
+    # registered but kept out of averaging until complete_quarantine().
+    _heartbeat.enter_quarantine(_cp.process_index())
+    st.windows = {}
     st._plan_cache = {}
+    st._topo_check_agreed = set()
+    st._topo_check_calls = 0
     st.topology = None
     st.initialized = True
 
@@ -198,8 +235,22 @@ def init(
         from .timeline import Timeline
 
         st.timeline = Timeline(prefix, process_index=st.rank)
-    # BFT_METRICS_INTERVAL / BFT_METRICS_PROM: the cadence thread
-    _metrics.start_publisher_if_needed()
+    st.watchdog = StallWatchdog(
+        warning_sec=float(knob_env("BFT_STALL_WARNING_TIME")),
+        cycle_ms=float(knob_env("BFT_CYCLE_TIME")))
+    st.watchdog.start()
+    # Failure detection and coordinated shutdown across controllers
+    # (reference: stall check operations.cc:387-432, SHUTDOWN broadcast
+    # :1074-1095): a controller is a process, so with a control plane of
+    # more than one.
+    if _cp.active() and _cp.world() > 1:
+        st.peer_monitor = _heartbeat.PeerMonitor(_cp.process_index(),
+                                                 _cp.world())
+        st.peer_monitor.start()
+    # BFT_METRICS_INTERVAL / BFT_METRICS_PROM: the heartbeat's tick carries
+    # publication when there is one, else a cadence thread of its own
+    _metrics.start_publisher_if_needed(
+        has_heartbeat=st.peer_monitor is not None)
     logger.info("bluefog_tpu_torch initialized: rank %d of %d on %s (%s)",
                 st.rank, st.size, st.device, dist.get_backend())
 
@@ -210,14 +261,29 @@ def shutdown() -> None:
     st = _state
     if not st.initialized:
         return
+    if _cp.active() and _cp.world() > 1:
+        # coordinated: peers learn the job is ending BEFORE this process
+        # (perhaps the control-plane server's host) tears anything down
+        _heartbeat.announce_shutdown(_cp.process_index(), _cp.world())
     if _metrics.publication_enabled():
         # final flush: a short job still leaves a current scrape
         try:
             _metrics.publish_now()
         except Exception:  # noqa: BLE001 — teardown must not raise
             pass
+    try:
+        # the same final flush for the live series: one last sample+delta
+        _timeseries.maybe_sample(force=True, publish=True)
+    except Exception:  # noqa: BLE001 — teardown must not raise
+        pass
     _metrics.stop_publisher()
+    if st.peer_monitor is not None:
+        st.peer_monitor.stop()
+        st.peer_monitor = None
     _cp.detach()
+    if st.watchdog is not None:
+        st.watchdog.stop()
+        st.watchdog = None
     # close open per-op spans BEFORE the timeline so the trace stays
     # balanced (every B gets its E edge)
     handles.close_all_spans()
@@ -231,6 +297,7 @@ def shutdown() -> None:
         shutil.rmtree(st.store_dir, ignore_errors=True)
         st.store_dir = None
     st._plan_cache.clear()
+    st.windows.clear()
     st.local_group = st.machine_group = st.checkpoint_group = None
     st.skip_negotiate = False
     st.topology = None
@@ -327,6 +394,8 @@ def set_topology(topology: Optional[nx.DiGraph] = None,
     st.topology = topology
     st.is_topo_weighted = is_weighted
     st._plan_cache.clear()
+    st._topo_check_agreed.clear()
+    st._topo_check_calls = 0
     return True
 
 

@@ -112,6 +112,12 @@ class Timeline:
         self._put({"ph": "E", "ts": self._now_us(), "pid": self._pid,
                    "tid": tid, "cat": tensor_name})
 
+    def instant(self, tensor_name: str, activity: str, tid: int = 0) -> None:
+        """Point event (``ph: "i"``): stall warnings, membership
+        transitions."""
+        self._put({"name": activity, "cat": tensor_name, "ph": "i", "s": "t",
+                   "ts": self._now_us(), "pid": self._pid, "tid": tid})
+
     def counter(self, name: str, value: int, tid: int = 0) -> None:
         """Chrome counter-track sample (``ph: "C"``): the metrics gauges
         and the clock-sync anchor ride these."""
@@ -175,6 +181,15 @@ def timeline_end_activity(tensor_name: str, tid: int = 0) -> bool:
     if tl is None:
         return False
     tl.activity_end(tensor_name, tid)
+    return True
+
+
+def timeline_instant(tensor_name: str, activity: str, tid: int = 0) -> bool:
+    """Emit an instant event (stall warnings, membership transitions)."""
+    tl = _timeline()
+    if tl is None:
+        return False
+    tl.instant(tensor_name, activity, tid)
     return True
 
 

@@ -3,6 +3,9 @@
 
     python3 chip_smoke.py            # all phases, one card, exits 0 on success
 
+(``python3 chip_smoke.py --liveness-helper`` is the CPU peer process that
+phase 15 starts itself.)
+
 Phases (each raises on failure; the script then exits non-zero):
 
 1. card: prints ``nvidia-smi --query-gpu=name,power.limit`` for the card.
@@ -167,6 +170,29 @@ Phases (each raises on failure; the script then exits non-zero):
    under a ``ShardRouter``: ``WIRE_FETCH_ADDS`` fetch_adds with shard 1
    SIGKILLed halfway end at exactly that count, a replicated ``put_max``
    key survives.
+15. liveness, failure detection and the telemetry plane beside the main
+   path: this process is controller 0 of a control plane of 2 (loopback, a
+   job secret), controller 1 this script run with ``--liveness-helper``, a
+   CPU process (gloo, a world of one) that only heartbeats; heartbeats
+   every 0.25 s, a peer silent 2 s dead, time series published every
+   0.5 s, the tuner on, stalls flagged after 1 s. (a) The LM of 13(a):
+   losses bit for bit and launches 13(a)'s; ms/step against 13(a)'s and
+   the wire phase's; then 5 s more of its steps, and the median
+   ``PeerMonitor._tick`` and ``TimeSeriesStore.sample`` in us. (b) An
+   outside client reads ``bf.ts.0`` (the bound series; ``opt.step.rate``
+   within 10 % of 1000/ms-per-step), ``bf.tune.0`` (the trail) and no
+   ``bf.tune.demoted``. (c) A handle over a 9 s device sleep on a side
+   stream: the watchdog flags it once (``watchdog.stalls``, one ``STALL``
+   instant, one ``watchdog-stall`` dump) and ``synchronize(timeout=0.5)``
+   raises a ``RuntimeError`` with the no-dead-peer diagnosis. (d) The
+   helper SIGKILLed: ``dead_controllers()``/``dead_ranks()`` are {1} within
+   2.75 s, the epoch rises, ``synchronize`` raises ``PeerLostError`` with
+   ``dead == {1}`` and a dump; after the sleep the retry returns. (e) The
+   helper again as incarnation 1: a suspect, still dead, until its
+   ``complete_quarantine()``; each transition bumps the epoch. (f) The
+   helper's ``bf.shutdown()`` shows in ``shutdown_requested()`` within
+   3 intervals and this process's own shutdown does not wait out its
+   grace.
 
 The line before the last is the ``kernels`` JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -444,6 +470,35 @@ WIRE_FETCH_ADDS = 200
 WIRE_REPS = 200
 WIRE_BULK_REPS = 20
 WIRE_STRIPE_BYTES = 4 << 20
+
+# Phase 15, liveness: the card's process is controller 0 of a control
+# plane of LIVE_WORLD controllers; controller 1 is this script run with
+# HELPER_ARG, a CPU process (gloo, world of one) that only heartbeats.
+# Heartbeats every LIVE_HB_INTERVAL s, a peer silent LIVE_HB_TIMEOUT s is
+# dead; time series published every LIVE_TS_INTERVAL s; the tuner on,
+# ticking every LIVE_TUNE_INTERVAL s (it floors this at 0.5 s); the
+# watchdog flags a handle older than LIVE_STALL_S s. (a) After the LM of
+# 13(a), LIVE_RATE_S s more of its steps for the published step rate,
+# which must lie within LIVE_RATE_TOL of 1000/ms-per-step; LIVE_TICK_REPS
+# ticks and samples timed. (c) A device sleep of LIVE_SLEEP_S s on a side
+# stream behind an event is the stalled op; synchronize's probe deadline
+# is LIVE_SYNC_PROBE_S. (d) Death must be seen within the timeout plus 3
+# intervals of the SIGKILL. (f) The shutdown grace is LIVE_GRACE_S, so a
+# shutdown that waited it out shows.
+HELPER_ARG = "--liveness-helper"
+LIVE_WORLD = 2
+LIVE_HB_INTERVAL = 0.25
+LIVE_HB_TIMEOUT = 2.0
+LIVE_TS_INTERVAL = 0.5
+LIVE_TUNE_INTERVAL = 0.25
+LIVE_STALL_S = 1.0
+LIVE_RATE_S = 5.0
+LIVE_RATE_TOL = 0.10
+LIVE_TICK_REPS = 100
+LIVE_SLEEP_S = 9.0
+LIVE_SYNC_PROBE_S = 0.5
+LIVE_GRACE_S = 5.0
+LIVE_WAIT_S = 20.0
 
 KERNELS = {
     "flash_fwd": ("bluefog_tpu_torch/parallel/csrc/flash_fwd.cu",
@@ -2815,7 +2870,7 @@ def _obs_blocks(bf, step, sync, steps: int, tmp: str, label: str,
             os.environ["BFT_METRICS_PROM"] = prom
             os.environ["BFT_METRICS_INTERVAL"] = "1"
             bf.start_timeline(os.path.join(tmp, f"{label}_{i}_"))
-            bf.metrics.start_publisher_if_needed()
+            bf.metrics.start_publisher_if_needed(has_heartbeat=False)
         try:
             issue = 0.0
             for _ in range(OBS_ISSUE_PROBES):
@@ -3109,10 +3164,13 @@ def wire(bf, fl, torch, card: str, obs: dict) -> dict:
     native.load()
     secret = "chip-smoke-" + os.urandom(8).hex()
     port = _free_port()
+    # BFT_CYCLE_TIME: the stall watchdog, the remote trigger's poller in a
+    # job of one controller, waits out the phase, so (c)'s two polls are
+    # the only ones
     env = {"BFT_CP_HOST": "127.0.0.1", "BFT_CP_PORT": str(port),
            "BFT_CP_SECRET": secret, "BFT_INCARNATION": str(WIRE_INC),
            "BFT_METRICS_INTERVAL": str(WIRE_INTERVAL),
-           "BFT_CP_BACKOFF_MS": "20"}
+           "BFT_CP_BACKOFF_MS": "20", "BFT_CYCLE_TIME": "600000"}
     with tempfile.TemporaryDirectory(prefix="bft_wire_") as tmp:
         env["BFT_FLIGHT_DIR"] = tmp
         os.environ.update(env)
@@ -3141,6 +3199,536 @@ def wire(bf, fl, torch, card: str, obs: dict) -> dict:
         f"{wall:.1f} s")
     return {"counts": a["counts"], "lm": a, "views": b, "dump": c,
             "shards": d, "times": e, "wall_s": wall}
+
+
+class _Helper:
+    """Controller 1 of the liveness phase: this script run with HELPER_ARG
+    (``_helper_main``), driven by lines on its stdin; its stdout lines
+    arrive through a reader thread, so every wait has a timeout."""
+
+    def __init__(self, env: dict) -> None:
+        import queue
+        import threading
+
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), HELPER_ARG],
+            env=env, cwd=HERE, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+            text=True)
+        self.lines: "queue.Queue[str]" = queue.Queue()
+        threading.Thread(target=self._read, daemon=True).start()
+
+    def _read(self) -> None:
+        for line in self.proc.stdout:
+            self.lines.put(line.strip())
+
+    def expect(self, prefix: str) -> str:
+        """The helper's next line, which must start with ``prefix``."""
+        import queue
+
+        try:
+            line = self.lines.get(timeout=LIVE_WAIT_S)
+        except queue.Empty:
+            raise RuntimeError(f"liveness: the helper said nothing in "
+                               f"{LIVE_WAIT_S} s (expected {prefix!r}; "
+                               f"exit code {self.proc.poll()})") from None
+        if not line.startswith(prefix):
+            raise RuntimeError(f"liveness: the helper said {line!r}, "
+                               f"expected {prefix!r}")
+        return line
+
+    def say(self, cmd: str) -> None:
+        self.proc.stdin.write(cmd + "\n")
+        self.proc.stdin.flush()
+
+    def kill(self) -> None:
+        import signal
+
+        self.proc.send_signal(signal.SIGKILL)
+        self.proc.wait(timeout=LIVE_WAIT_S)
+
+    def close(self) -> None:
+        if self.proc.poll() is None:
+            self.kill()
+
+
+def _helper_main() -> int:
+    """The helper's body: on ``INIT`` from stdin, ``bf.init(device="cpu")``
+    over gloo (a world of one) as controller 1 of the control plane its
+    environment names, then only heartbeats. ``COMPLETE`` finishes its
+    quarantine, ``SHUTDOWN`` calls ``bf.shutdown()``. It imports before
+    it is told to start, so its import overlaps the card's work."""
+    sys.path.insert(0, HERE)
+    import bluefog_tpu_torch as bf
+    from bluefog_tpu_torch.runtime import heartbeat
+
+    print("HELPER_IMPORTED", flush=True)
+    if sys.stdin.readline().strip() != "INIT":
+        return 1
+    bf.init(device="cpu")
+    print(f"HELPER_UP quarantined={heartbeat.quarantine_pending()}",
+          flush=True)
+    while True:
+        cmd = sys.stdin.readline().strip()
+        if cmd == "COMPLETE":
+            heartbeat.complete_quarantine()
+            print("HELPER_COMPLETED", flush=True)
+        elif cmd == "SHUTDOWN":
+            bf.shutdown()
+            print("HELPER_DOWN", flush=True)
+            return 0
+        elif not cmd:
+            return 1  # stdin closed: the card's process is gone
+
+
+def _wait_until(cond, what: str, limit: float = LIVE_WAIT_S) -> float:
+    """Poll ``cond`` every 10 ms; the seconds it took, or raise after
+    ``limit``."""
+    t0 = time.monotonic()
+    while not cond():
+        if time.monotonic() - t0 > limit:
+            raise RuntimeError(f"liveness: {what} not within {limit} s")
+        time.sleep(0.01)
+    return time.monotonic() - t0
+
+
+def _ts_slots(doc: dict, name: str, slots: dict) -> None:
+    """Fold one ``bf.ts`` document's delta of series ``name`` into
+    ``slots`` (slot start in seconds -> value)."""
+    rec = doc.get("series", {}).get(name)
+    if not rec:
+        return
+    t = rec["t0_ms"]
+    for dt, v in zip([0] + rec["dt_ms"], rec["v"]):
+        t += dt
+        slots[t / 1000.0] = v
+
+
+def live_lm(bf, fl, torch, obs: dict, wire_ms: float, ext) -> dict:
+    """(a) The LM of 13(a) with the monitor, the sampler and the tuner
+    ticking: losses and launches 13(a)'s; then LIVE_RATE_S s more of its
+    steps while a thread reads ``bf.ts.0`` through ``ext`` (an outside
+    client), for (b)'s rate check; then the median ``PeerMonitor._tick``
+    (a second monitor on a connection of its own) and
+    ``TimeSeriesStore.sample``."""
+    import threading
+
+    from bluefog_tpu_torch.runtime import control_plane as cp
+    from bluefog_tpu_torch.runtime import heartbeat, timeseries
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    model, opt, batch = headline(bf, torch, dev, fl.flash_attention)
+    run = _train_steps(fl, torch, opt, batch)
+    _check_training("liveness", run, LAYERS)
+    ms = run["dt"] * 1e3
+    if run["losses"] != obs["losses"]:
+        raise RuntimeError(f"liveness (a): losses {run['losses']} differ "
+                           f"from 13(a)'s {obs['losses']}")
+    if run["counts"] != obs["counts"]:
+        raise RuntimeError(f"liveness (a): launches {run['counts']} differ "
+                           f"from 13(a)'s {obs['counts']}")
+
+    slots: dict = {}
+    stop = threading.Event()
+
+    def poll() -> None:
+        while not stop.wait(0.2):
+            doc = timeseries.read_rank(ext, 0)
+            if doc:
+                _ts_slots(doc, "opt.step.rate", slots)
+
+    reader = threading.Thread(target=poll, daemon=True)
+    reader.start()
+    torch.cuda.synchronize()
+    t_start, p0, n = time.time(), time.perf_counter(), 0
+    while time.perf_counter() - p0 < LIVE_RATE_S:
+        opt.step(batch)
+        torch.cuda.synchronize()
+        n += 1
+    rate_ms = (time.perf_counter() - p0) / n * 1e3
+    t_end = time.time()
+    # the last interior sample reaches the KV within a publication
+    time.sleep(2 * LIVE_TS_INTERVAL + 1.0)
+    stop.set()
+    reader.join(timeout=LIVE_WAIT_S)
+    del model, opt
+
+    mon = heartbeat.PeerMonitor(cp.process_index(), cp.world())
+    mon._cl = cp.extra_client()
+    try:
+        tick_us = _median_us(mon._tick, LIVE_TICK_REPS)
+    finally:
+        mon.stop()
+    sample_us = _median_us(timeseries.store().sample, LIVE_TICK_REPS)
+    log(f"liveness train (monitor, sampler and tuner ticking): ms/step="
+        f"{ms:.3f}, against 13(a)'s {obs['ms_per_step']:.3f} (ratio "
+        f"{ms / obs['ms_per_step']:.4f}) and the wire phase's {wire_ms:.3f} "
+        f"(ratio {ms / wire_ms:.4f}); losses " + " ".join(
+            f"{x:.5f}" for x in run["losses"]) + f"; launches "
+        f"{run['counts']}; then {n} steps in {LIVE_RATE_S} s at "
+        f"{rate_ms:.3f} ms/step, each closed by a synchronize")
+    log(f"liveness costs on this host: median PeerMonitor._tick "
+        f"{tick_us:.1f} us, median TimeSeriesStore.sample {sample_us:.1f} us "
+        f"({LIVE_TICK_REPS} calls each)")
+    return {"counts": run["counts"], "losses": run["losses"],
+            "ms_per_step": ms, "ratio_to_obs": ms / obs["ms_per_step"],
+            "ratio_to_wire": ms / wire_ms, "rate_ms_per_step": rate_ms,
+            "rate_window": (t_start, t_end), "rate_slots": slots,
+            "tick_us": tick_us, "sample_us": sample_us}
+
+
+def live_views(a: dict, ext) -> dict:
+    """(b) What the job publishes, read through the outside client: the
+    bound series in ``bf.ts.0``, its step rate within LIVE_RATE_TOL of
+    1000/ms-per-step over the slots wholly inside the stepping window; the
+    tuner's trail ``bf.tune.0``; no ``bf.tune.demoted`` (no window, so no
+    lever moved)."""
+    from bluefog_tpu_torch.runtime import timeseries
+
+    doc = timeseries.read_rank(ext, 0)
+    bound = {"opt.step", "opt.step.rate", "membership.epoch",
+             "hb.dead_peers", "hb.suspect_peers"}
+    missing = sorted(bound - set(doc["latest"] if doc else ()))
+    t_start, t_end = a["rate_window"]
+    # a sample in the slot starting at s covers (s - 1, s + 1) at most
+    inside = sorted(v for s, v in a["rate_slots"].items()
+                    if s - 1.0 >= t_start and s + 1.0 <= t_end)
+    want = 1000.0 / a["rate_ms_per_step"]
+    rate = inside[len(inside) // 2] if inside else math.nan
+    trail_blob = ext.get_bytes("bf.tune.0")
+    trail = json.loads(bytes(trail_blob).decode()) if trail_blob else {}
+    demoted = ext.get_bytes("bf.tune.demoted")
+    log(f"liveness views: bf.ts.0 seq {doc and doc['seq']} with "
+        f"{len(doc['latest']) if doc else 0} series, bound series missing "
+        f"{missing}; opt.step.rate slots inside the window {inside} "
+        f"(median {rate:.3f}/s) against 1000/ms-per-step {want:.3f}/s "
+        f"(limit {LIVE_RATE_TOL:.0%}); bf.tune.0 rank "
+        f"{trail.get('rank')} levels {trail.get('levels')} demoted "
+        f"{trail.get('demoted')} decisions {len(trail.get('decisions', []))}"
+        f", {time.time() - trail.get('t', 0):.2f} s old; bf.tune.demoted "
+        f"{len(demoted)} bytes")
+    bad = []
+    if missing:
+        bad.append(f"bf.ts.0 lacks {missing}")
+    if len(inside) < 2 or not abs(rate - want) <= LIVE_RATE_TOL * want:
+        bad.append(f"published step rate {rate} (from {inside}) against "
+                   f"{want}")
+    if trail.get("rank") != 0 or trail.get("demoted") or \
+            trail.get("levels") or not time.time() - trail["t"] < 5.0:
+        bad.append(f"bf.tune.0 trail {trail}")
+    if demoted:
+        bad.append("bf.tune.demoted was published with no window")
+    if bad:
+        raise RuntimeError("liveness (b): " + "; ".join(bad))
+    return {"series": len(doc["latest"]), "rate_slots": inside,
+            "rate_per_s": rate, "want_per_s": want}
+
+
+class _EventWork:
+    """A ``Work`` over a CUDA event, as NCCL's is: ``is_completed``
+    queries the event, ``wait`` orders the current stream after it."""
+
+    def __init__(self, ev) -> None:
+        self.ev = ev
+
+    def is_completed(self) -> bool:
+        return self.ev.query()
+
+    def wait(self) -> bool:
+        self.ev.wait()
+        return True
+
+
+def _device_sleep(torch, seconds: float):
+    """Queue a spin of about ``seconds`` on a side stream (the card's
+    cycles per ms measured first) and an event behind it; returns the
+    stream and the event."""
+    t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0.record()
+    torch.cuda._sleep(50_000_000)
+    t1.record()
+    t1.synchronize()
+    per_ms = 50_000_000 / t0.elapsed_time(t1)
+    side = torch.cuda.Stream()
+    ev = torch.cuda.Event()
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(int(per_ms * seconds * 1e3))
+        ev.record(side)
+    return side, ev
+
+
+def _dump_instants(path: str, name: str) -> tuple:
+    """(reason, count of instant ``name``) of the flight dump at path."""
+    from bluefog_tpu_torch.runtime import flight
+
+    with open(path) as f:
+        doc = json.load(f)
+    names = doc["names"]
+    n = sum(1 for k, i in zip(doc["events"]["kind"], doc["events"]["name"])
+            if k == flight.INSTANT and names[i] == name)
+    return doc["meta"]["reason"], n
+
+
+def live_stall(bf, torch, tmp: str) -> dict:
+    """(c) A handle whose op is a LIVE_SLEEP_S s device sleep: the watchdog
+    flags it once (one ``watchdog.stalls``, one ``STALL`` instant on the
+    timeline, one ``watchdog-stall`` dump) and not again a cycle later;
+    ``synchronize`` with a LIVE_SYNC_PROBE_S s deadline raises a plain
+    ``RuntimeError`` with the no-dead-peer diagnosis and keeps the
+    handle."""
+    from bluefog_tpu_torch.runtime import handles, metrics, native
+
+    prefix = os.path.join(tmp, "live_tl_")
+    if not bf.start_timeline(prefix):
+        raise RuntimeError("liveness (c): start_timeline refused")
+    side, ev = _device_sleep(torch, LIVE_SLEEP_S)
+    h = handles.allocate("liveness.sleep", [_EventWork(ev)],
+                         lambda: "slept")
+    flag_s = _wait_until(lambda: metrics.counter("watchdog.stalls").value,
+                         "the watchdog's flag", LIVE_STALL_S + 5.0)
+    time.sleep(1.2)  # a full watchdog cycle more: no second flag
+    stalls = metrics.counter("watchdog.stalls").value
+    bf.stop_timeline()
+    with open(f"{prefix}{bf.rank()}.json") as f:
+        instants = [e for e in json.load(f)
+                    if e.get("ph") == "i" and e.get("name") == "STALL"]
+    dump = os.path.join(tmp, "bf_flight_0.json")
+    reason, marks = _dump_instants(dump, "fatal.watchdog.stall")
+    t0 = time.monotonic()
+    try:
+        handles.synchronize(h, timeout=LIVE_SYNC_PROBE_S)
+        err = None
+    except RuntimeError as exc:
+        err = exc
+    probe_s = time.monotonic() - t0
+    log(f"liveness stall: flagged {flag_s:.2f} s after the handle was "
+        f"issued (stall threshold {LIVE_STALL_S} s, 1 s watchdog cycle); "
+        f"watchdog.stalls "
+        f"{stalls}, STALL instants {len(instants)} "
+        f"({[e.get('cat') for e in instants]}), dump {reason!r} with "
+        f"{marks} fatal.watchdog.stall; synchronize(timeout="
+        f"{LIVE_SYNC_PROBE_S}) raised {type(err).__name__} after "
+        f"{probe_s:.2f} s: {err}")
+    bad = []
+    if stalls != 1 or len(instants) != 1 or \
+            instants[0].get("cat") != "liveness.sleep":
+        bad.append(f"flagged {stalls} times, {len(instants)} instants")
+    if reason != "watchdog-stall" or marks != 1:
+        bad.append(f"dump {reason!r} with {marks} marks")
+    if type(err) is not RuntimeError or isinstance(
+            err, native.PeerLostError) or \
+            "no peer is reported dead" not in str(err):
+        bad.append(f"synchronize raised {err!r}")
+    if h not in handles.outstanding():
+        bad.append("the handle did not stay valid")
+    if bad:
+        raise RuntimeError("liveness (c): " + "; ".join(bad))
+    return {"handle": h, "event": ev, "stream": side, "flag_s": flag_s,
+            "probe_s": probe_s}
+
+
+def live_death(bf, torch, helper: _Helper, c: dict, tmp: str) -> dict:
+    """(d) SIGKILL the helper: ``dead_controllers()`` and ``dead_ranks()``
+    become {1} within the timeout plus 3 intervals, the epoch rises,
+    ``hb.dead_transitions`` is 1; ``synchronize`` on (c)'s handle, the
+    sleep still running, raises ``PeerLostError`` with ``dead == {1}``
+    after a ``fatal`` dump; after the sleep the retry returns."""
+    from bluefog_tpu_torch.runtime import handles, metrics, native
+
+    epoch0 = bf.membership_epoch()
+    t_kill = time.monotonic()
+    helper.kill()
+    latency = _wait_until(lambda: bf.dead_controllers() == {1},
+                          "controller 1's death")
+    # the monitor adds to its dead set first, then bumps the epoch (a KV
+    # round trip) and counts the transition: read them once counted
+    _wait_until(lambda: metrics.counter("hb.dead_transitions").value,
+                "the death's transition count", 5.0)
+    dead_ranks = bf.dead_ranks()
+    epoch1 = bf.membership_epoch()
+    transitions = metrics.counter("hb.dead_transitions").value
+    bound = LIVE_HB_TIMEOUT + 3 * LIVE_HB_INTERVAL
+    if c["event"].query():
+        raise RuntimeError("liveness (d): the device sleep ended before "
+                           "the synchronize it must outlast")
+    try:
+        handles.synchronize(c["handle"], timeout=LIVE_SYNC_PROBE_S)
+        lost = None
+    except RuntimeError as exc:
+        lost = exc
+    reason, marks = _dump_instants(os.path.join(tmp, "bf_flight_0.json"),
+                                   "fatal.synchronize")
+    t0 = time.monotonic()
+    out = handles.synchronize(c["handle"], timeout=LIVE_SLEEP_S + 10.0)
+    torch.cuda.synchronize()
+    retry_s = time.monotonic() - t0
+    log(f"liveness death: dead_controllers {{1}} {latency:.3f} s after the "
+        f"SIGKILL (limit {bound} s), dead_ranks {sorted(dead_ranks)}, epoch "
+        f"{epoch0} -> {epoch1}, hb.dead_transitions {transitions}; "
+        f"synchronize raised {type(lost).__name__} dead="
+        f"{getattr(lost, 'dead', None)}, dump {reason!r} with {marks} "
+        f"fatal.synchronize; the retry returned {out!r} after "
+        f"{retry_s:.2f} s, {time.monotonic() - t_kill:.2f} s after the kill")
+    bad = []
+    if not latency <= bound or dead_ranks != {1}:
+        bad.append(f"death seen after {latency} s, dead ranks {dead_ranks}")
+    if not epoch1 > epoch0 or transitions != 1:
+        bad.append(f"epoch {epoch0} -> {epoch1}, {transitions} transitions")
+    if not isinstance(lost, native.PeerLostError) or lost.dead != {1}:
+        bad.append(f"synchronize raised {lost!r}")
+    if reason != "synchronize: PeerLostError" or marks != 1:
+        bad.append(f"dump {reason!r} with {marks} marks")
+    if out != "slept" or not c["event"].query():
+        bad.append(f"the retry returned {out!r}")
+    if bad:
+        raise RuntimeError("liveness (d): " + "; ".join(bad))
+    return {"detect_s": latency, "bound_s": bound, "epoch": [epoch0, epoch1],
+            "retry_s": retry_s}
+
+
+def live_rejoin(bf, helper: _Helper) -> dict:
+    """(e) The helper again (a process started with the first, waiting),
+    as incarnation 1: its resumed heartbeat makes controller 1 a suspect
+    that stays dead, also through 4 more ticks; only its
+    ``complete_quarantine()`` takes it out of both sets; each transition
+    bumps the epoch."""
+    from bluefog_tpu_torch.runtime import metrics
+
+    epochs = [bf.membership_epoch()]
+    helper.expect("HELPER_IMPORTED")
+    helper.say("INIT")
+    up = helper.expect("HELPER_UP")
+    suspect_s = _wait_until(lambda: bf.suspect_controllers() == {1},
+                            "controller 1 as a suspect")
+    # each transition's epoch bump lands before its count: read after it
+    _wait_until(lambda: metrics.counter("hb.suspect_transitions").value,
+                "the suspect transition's count", 5.0)
+    epochs.append(bf.membership_epoch())
+    fenced = []
+    t0 = time.monotonic()
+    while time.monotonic() - t0 < 4 * LIVE_HB_INTERVAL:
+        fenced.append(bf.suspect_controllers() == {1} and
+                      bf.dead_controllers() == {1})
+        time.sleep(0.02)
+    helper.say("COMPLETE")
+    helper.expect("HELPER_COMPLETED")
+    readmit_s = _wait_until(
+        lambda: not bf.dead_controllers() and not bf.suspect_controllers(),
+        "controller 1's re-admission")
+    _wait_until(lambda: metrics.counter("hb.readmissions").value,
+                "the re-admission's count", 5.0)
+    epochs.append(bf.membership_epoch())
+    counts = {k: metrics.counter(k).value for k in
+              ("hb.suspect_transitions", "hb.readmissions")}
+    log(f"liveness rejoin: helper {up!r}; suspect {suspect_s:.3f} s after "
+        f"it came up, dead and suspect through {len(fenced)} polls over 4 "
+        f"intervals: {all(fenced)}; re-admitted {readmit_s:.3f} s after "
+        f"complete_quarantine; epochs {epochs}; {counts}")
+    bad = []
+    if up != "HELPER_UP quarantined=True" or not all(fenced):
+        bad.append(f"{up!r}, fenced {all(fenced)}")
+    if not epochs[0] < epochs[1] < epochs[2]:
+        bad.append(f"epochs {epochs}")
+    if counts != {"hb.suspect_transitions": 1, "hb.readmissions": 1}:
+        bad.append(f"counters {counts}")
+    if bad:
+        raise RuntimeError("liveness (e): " + "; ".join(bad))
+    return {"suspect_s": suspect_s, "readmit_s": readmit_s,
+            "epochs": epochs}
+
+
+def live_shutdown(bf, helper: _Helper) -> dict:
+    """(f) The helper's ``bf.shutdown()`` reaches this process's
+    ``shutdown_requested()`` within 3 intervals; then this process's own
+    ``bf.shutdown()`` returns without waiting out the LIVE_GRACE_S s
+    grace."""
+    if bf.shutdown_requested():
+        raise RuntimeError("liveness (f): shutdown requested too early")
+    t0 = time.monotonic()
+    helper.say("SHUTDOWN")
+    seen_s = _wait_until(bf.shutdown_requested, "the helper's shutdown")
+    helper.expect("HELPER_DOWN")
+    rc = helper.proc.wait(timeout=LIVE_WAIT_S)
+    t0 = time.monotonic()
+    bf.shutdown()
+    down_s = time.monotonic() - t0
+    log(f"liveness shutdown: shutdown_requested {seen_s:.3f} s after the "
+        f"helper was told (limit {3 * LIVE_HB_INTERVAL} s), the helper "
+        f"exited {rc}; this process's bf.shutdown() took {down_s:.3f} s "
+        f"(grace {LIVE_GRACE_S} s)")
+    if not seen_s <= 3 * LIVE_HB_INTERVAL or rc != 0 or \
+            not down_s < LIVE_GRACE_S:
+        raise RuntimeError(f"liveness (f): seen after {seen_s} s, helper "
+                           f"exit {rc}, shutdown {down_s} s")
+    return {"seen_s": seen_s, "shutdown_s": down_s}
+
+
+def liveness(bf, fl, torch, card: str, obs: dict, wire_run: dict) -> dict:
+    """Phase 15: failure detection and the telemetry plane beside the LM,
+    (a)-(f), the card's process controller 0 of LIVE_WORLD."""
+    from bluefog_tpu_torch.runtime import native
+
+    t0 = time.perf_counter()
+    secret = "chip-smoke-" + os.urandom(8).hex()
+    port = _free_port()
+    common = {"BFT_CP_HOST": "127.0.0.1", "BFT_CP_PORT": str(port),
+              "BFT_CP_WORLD": str(LIVE_WORLD), "BFT_CP_SECRET": secret,
+              "BFT_HEARTBEAT_INTERVAL": str(LIVE_HB_INTERVAL),
+              "BFT_HEARTBEAT_TIMEOUT": str(LIVE_HB_TIMEOUT),
+              "BFT_SHUTDOWN_GRACE": str(LIVE_GRACE_S),
+              "BFT_CP_BACKOFF_MS": "20"}
+    env = dict(common, BFT_CP_RANK="0", BFT_TS_INTERVAL=str(LIVE_TS_INTERVAL),
+               BFT_TUNE="1", BFT_TUNE_INTERVAL=str(LIVE_TUNE_INTERVAL),
+               BFT_STALL_WARNING_TIME=str(LIVE_STALL_S),
+               BFT_FLIGHT_MIN_INTERVAL="0")
+    helper_env = {k: v for k, v in os.environ.items()
+                  if not k.startswith("BFT_")}
+    helper_env.update(common, BFT_CP_RANK="1", BFT_TS_DISABLE="1")
+    helpers: list = []
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="bft_live_") as tmp:
+        env["BFT_FLIGHT_DIR"] = helper_env["BFT_FLIGHT_DIR"] = tmp
+        os.environ.update(env)
+        try:
+            # both helper processes now (the second is (e)'s incarnation
+            # 1): their imports take seconds and overlap
+            helpers.append(_Helper(helper_env))
+            helpers.append(_Helper(dict(helper_env, BFT_INCARNATION="1")))
+            helpers[0].expect("HELPER_IMPORTED")
+            bf.init()
+            helpers[0].say("INIT")
+            helpers[0].expect("HELPER_UP quarantined=False")
+            ext = native.ControlPlaneClient("127.0.0.1", port, 100,
+                                            secret=secret, streams=1)
+            try:
+                _wait_until(lambda: ext.get("bf.hb.1") != 0,
+                            "the helper's first heartbeat")
+                out["lm"] = live_lm(bf, fl, torch, obs,
+                                    wire_run["lm"]["ms_per_step"], ext)
+                out["views"] = live_views(out["lm"], ext)
+            finally:
+                ext.close()
+            out["lm"].pop("rate_slots")
+            c = live_stall(bf, torch, tmp)
+            out["death"] = live_death(bf, torch, helpers[0], c, tmp)
+            out["stall"] = {k: c[k] for k in ("flag_s", "probe_s")}
+            out["rejoin"] = live_rejoin(bf, helpers[1])
+            out["shutdown"] = live_shutdown(bf, helpers[1])
+        finally:
+            for helper in helpers:
+                helper.close()
+            bf.shutdown()
+            for k in env:
+                del os.environ[k]
+    out["wall_s"] = time.perf_counter() - t0
+    out["counts"] = out["lm"]["counts"]
+    log(f"liveness ({card}): LM step with the monitor, sampler and tuner / "
+        f"13(a)'s {out['lm']['ratio_to_obs']:.4f}, / the wire phase's "
+        f"{out['lm']['ratio_to_wire']:.4f}; tick {out['lm']['tick_us']:.1f} "
+        f"us, sample {out['lm']['sample_us']:.1f} us; death seen "
+        f"{out['death']['detect_s']:.3f} s after the SIGKILL; shutdown "
+        f"{out['shutdown']['shutdown_s']:.3f} s; phase wall "
+        f"{out['wall_s']:.1f} s")
+    return out
 
 
 def max_abs_errs(fl, torch, dev, B, S, H, D) -> dict:
@@ -3275,6 +3863,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     native_build.join()
     wire_run = wire(bf, fl, torch, card, obs)
+    torch.cuda.empty_cache()
+    live = liveness(bf, fl, torch, card, obs, wire_run)
 
     kernels = []
     for name, (src, tpu) in KERNELS.items():
@@ -3300,7 +3890,8 @@ def main() -> int:
                 "pp_train_step_fn LM, fused": par["train"]["pp fused"][
                     "counts"][name],
                 "observability LM": obs["counts"][name],
-                "wire LM": wire_run["counts"][name]},
+                "wire LM": wire_run["counts"][name],
+                "liveness LM": live["counts"][name]},
         })
     os.makedirs(os.path.dirname(OUT), exist_ok=True)
     with open(OUT, "w") as f:
@@ -3309,7 +3900,7 @@ def main() -> int:
                    "lm_bench": lm_bench_runs,
                    "moe": moe, "experts": experts, "parallel": par,
                    "vision": vision, "observability": obs,
-                   "wire": wire_run}, f, indent=1)
+                   "wire": wire_run, "liveness": live}, f, indent=1)
     log(f"wall: {time.perf_counter() - t_start:.1f} s after the card check")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
@@ -3319,4 +3910,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:] == [HELPER_ARG]:
+        sys.exit(_helper_main())
     sys.exit(main())

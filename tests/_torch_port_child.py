@@ -26,8 +26,9 @@ _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def run_world(mode: str, tmp_dir: str, world: int = 4,
-              timeout: float = 300.0):
-    """Run ``mode`` on ``world`` child ranks; returns each rank's outputs."""
+              timeout: float = 300.0, killed=()):
+    """Run ``mode`` on ``world`` child ranks; returns each rank's outputs.
+    A rank in ``killed`` must end by SIGKILL; its outputs are None."""
     env = dict(os.environ)
     env["PYTHONPATH"] = _REPO + os.pathsep + env.get("PYTHONPATH", "")
     env["OMP_NUM_THREADS"] = "1"
@@ -45,9 +46,12 @@ def run_world(mode: str, tmp_dir: str, world: int = 4,
                 p.kill()
                 p.wait()
     for r, p in enumerate(procs):
-        if p.returncode != 0:
-            raise RuntimeError(f"rank {r} of {mode} failed:\n{logs[r]}")
-    return [dict(np.load(os.path.join(tmp_dir, f"out_{r}.npz")))
+        want = -9 if r in killed else 0
+        if p.returncode != want:
+            raise RuntimeError(f"rank {r} of {mode} ended with "
+                               f"{p.returncode}, not {want}:\n{logs[r]}")
+    return [None if r in killed else
+            dict(np.load(os.path.join(tmp_dir, f"out_{r}.npz")))
             for r in range(world)]
 
 
@@ -873,6 +877,132 @@ def _wire(bf, torch, rank: int, world: int, inp) -> dict:
             "log_prefix": np.array(_RankPrefixFilter._prefix())}
 
 
+def _peer_lost(bf, torch, rank: int, world: int, inp) -> dict:
+    """Failure detection under a control plane the parent serves, with a
+    fast heartbeat: after a barrier rank ``victim`` SIGKILLs itself where
+    the others issue ``allreduce_nonblocking``, so their op can never
+    complete. Each survivor's ``synchronize(timeout)`` must raise
+    ``PeerLostError``; it reports the error's ``dead``, ``dead_ranks()``,
+    ``dead_controllers()``, the epoch and the seconds the call took. The
+    process group is broken then, so the survivors write their outputs
+    and leave without the collective teardown."""
+    import signal
+    import time
+
+    victim = int(inp["victim"])
+    epoch0 = bf.membership_epoch()
+    bf.barrier()
+    if rank == victim:
+        os.kill(os.getpid(), signal.SIGKILL)
+    h = bf.allreduce_nonblocking(torch.full((4,), float(rank)),
+                                 name="doomed")
+    t0 = time.monotonic()
+    try:
+        bf.synchronize(h, timeout=float(inp["sync_timeout"]))
+        raise SystemExit("synchronize returned with a peer dead")
+    except bf.PeerLostError as exc:
+        err = exc
+    seconds = time.monotonic() - t0
+    # the monitor adds to its dead set before it bumps the epoch (a KV
+    # round trip): give the bump a moment to land
+    deadline = time.monotonic() + 5.0
+    while bf.membership_epoch() <= epoch0 and time.monotonic() < deadline:
+        time.sleep(0.01)
+    out = {"dead": np.array(sorted(err.dead)),
+           "dead_ranks": np.array(sorted(bf.dead_ranks())),
+           "dead_controllers": np.array(sorted(bf.dead_controllers())),
+           "epoch_rose": np.array(bf.membership_epoch() > epoch0),
+           "seconds": np.array(seconds),
+           "message": np.array(str(err)),
+           "dump": np.array(os.path.exists(f"bf_flight_{rank}.json"))}
+    np.savez(os.path.join(os.getcwd(), f"out_{rank}.npz"), **out)
+    sys.stdout.flush()
+    os._exit(0)
+
+
+def _topo_check(bf, torch, rank: int, world: int, inp) -> dict:
+    """The cross-controller topology check under a control plane the
+    parent serves (``BFT_TOPO_CHECK_TIMEOUT``, ``BFT_TOPO_CHECK_REARM`` =
+    4). (a) Every rank passes the same dynamic ring shift by one: the
+    check agrees, the result is the closed form, its repeat is a cache
+    hit. (b) Rank 0 alone passes a different set: every rank's check
+    raises (nothing is exchanged). (c) A two-step cyclic schedule agreed
+    step by step, then rank 0 one step ahead at the re-arm call: every
+    rank's re-arm raises; in step again, the next re-arm agrees."""
+    import time
+
+    from bluefog_tpu_torch.runtime import control_plane as cp
+
+    n = world
+    x = torch.full((2,), float(rank))
+
+    def step(shift, name):
+        return bf.neighbor_allreduce(
+            x, self_weight=0.5,
+            neighbor_weights={r: {(r - shift) % n: 0.5} for r in range(n)},
+            send_neighbors={r: [(r + shift) % n] for r in range(n)},
+            name=name)
+
+    def raises(shift, match):
+        t0 = time.monotonic()
+        try:
+            step(shift, "bad")
+        except RuntimeError as exc:
+            if match not in str(exc):
+                raise
+            return time.monotonic() - t0
+        raise SystemExit(f"shift {shift} was not refused")
+
+    out = {"agreed": step(1, "agreed").numpy(),
+           "warm": step(1, "warm").numpy()}
+    bf.barrier()
+    out["diverged_s"] = np.array(raises(
+        2 if rank == 0 else 3, "DIFFERENT dynamic edge sets"))
+    bf.barrier()
+    # (c) BFT_TOPO_CHECK_REARM=4 counts checked calls since set_topology
+    bf.set_topology(bf.topology_util.RingGraph(n))
+    step(1, "c1")
+    step(2, "c2")
+    step(1, "c3")
+    out["rearm_s"] = np.array(raises(1 if rank == 0 else 2,
+                                     "topology re-check failed"))
+    bf.barrier()
+    for c, shift in ((5, 1), (6, 2), (7, 1), (8, 2)):
+        out[f"c{c}"] = step(shift, f"c{c}").numpy()
+    out["tickets"] = np.array(cp.client().get("tc.rearm.tickets"))
+    return out
+
+
+def _sidecar_epoch(bf, torch, rank: int, world: int, inp) -> dict:
+    """A checkpoint under a control plane the parent serves: the sidecar
+    carries the membership epoch ``bf.membership_epoch()`` reads at the
+    save, once the heartbeat's mirror has caught up with the server's
+    count (every attach under ``BFT_INCARNATION`` bumps it)."""
+    import json
+    import time
+
+    from bluefog_tpu_torch.runtime import control_plane as cp
+
+    model = torch.nn.Linear(3, 1)
+    opt = bf.DistributedNeighborAllreduceOptimizer(
+        torch.optim.SGD(model.parameters(), lr=0.1), model,
+        lambda m, b: (m(b) ** 2).mean())
+    opt.step(torch.ones(2, 3))
+    bf.barrier()
+    deadline = time.monotonic() + 10.0
+    while bf.membership_epoch() < cp.membership_epoch_kv() and \
+            time.monotonic() < deadline:
+        time.sleep(0.05)
+    bf.barrier()
+    epoch = bf.membership_epoch()
+    path = bf.checkpoint.save(os.path.join(os.getcwd(), "ck"), opt, step=1)
+    out = {"epoch": np.array(epoch)}
+    if rank == 0:
+        with open(path + ".bf_meta.json") as f:
+            out["meta_epoch"] = np.array(json.load(f)["membership_epoch"])
+    return out
+
+
 def _examples(tmp_dir: str) -> None:
     """Every example of ``bluefog_tpu_torch/examples/`` (but the
     long-context one) through its entry point, in turn, in this rank of a
@@ -927,7 +1057,8 @@ def main() -> None:
            "checkpoint": _checkpoint, "expert": _expert,
            "optimization": _optimization, "tensor": _tensor,
            "pipeline": _pipeline, "timeline": _timeline,
-           "wire": _wire}[mode](
+           "wire": _wire, "peer_lost": _peer_lost,
+           "topo_check": _topo_check, "sidecar_epoch": _sidecar_epoch}[mode](
                bf, torch, rank, world, inp)
     bf.barrier()
     bf.shutdown()

@@ -104,7 +104,7 @@ def test_meta_sidecar_matches_jax_world4(world4):
     """The sidecar holds JAX's ``_runtime_meta`` fields and values for the
     same world and topology (Expo-2 over 4). ``process_count`` counts the
     port's processes, one per rank, where JAX's single controller counts
-    one; ``membership_epoch`` waits for the port's heartbeat."""
+    one; ``membership_epoch`` is 0 in both, with no control plane."""
     from bluefog_tpu import checkpoint as jck
 
     d, _ = world4
@@ -115,8 +115,7 @@ def test_meta_sidecar_matches_jax_world4(world4):
         want = jck._runtime_meta(3)
     finally:
         bf.shutdown()
-    want.pop("membership_epoch", None)
-    assert want["process_count"] == 1
+    assert want["process_count"] == 1 and want["membership_epoch"] == 0
     assert meta == dict(want, process_count=N)
     assert ck.read_meta(str(d / "sgd")) == meta
 

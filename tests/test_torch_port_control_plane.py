@@ -299,6 +299,42 @@ def test_attach_from_torchrun_env(monkeypatch):
     assert not cp.active() and cp._server is None
 
 
+def test_in_process_shards_hold_native_knobs_until_detach(monkeypatch):
+    """``BFT_CP_SHARDS=2`` serves both shards in this process, and their
+    replication threads read ``BLUEFOG_CP_RETRIES``/``_BACKOFF_MS``
+    whenever they dial a successor, outside any call of the binding. For
+    as long as the shards serve, the C library's ``getenv`` (the read the
+    threads make) sees the ``BFT_*`` values under those names, a stray
+    ``BLUEFOG_*`` value without its twin hidden; detach puts the
+    environment back."""
+    import ctypes
+
+    getenv = ctypes.CDLL(None).getenv
+    getenv.restype = ctypes.c_char_p
+    monkeypatch.setenv("BLUEFOG_CP_RETRIES", "0")       # stray, no twin
+    monkeypatch.setenv("BLUEFOG_CP_BACKOFF_MS", "999")  # stray
+    monkeypatch.setenv("BFT_CP_BACKOFF_MS", "25")
+    monkeypatch.delenv("BFT_CP_RETRIES", raising=False)
+    port = next(p for p in iter(_dead_port, None) if _is_free(p + 1))
+    for k, v in {"BFT_CP_HOST": "127.0.0.1", "BFT_CP_PORT": str(port),
+                 "BFT_CP_SHARDS": "2", "BFT_CP_WORLD": "1",
+                 "BFT_CP_RANK": "0"}.items():
+        monkeypatch.setenv(k, v)
+    cl = cp.attach()
+    try:
+        assert isinstance(cl, ShardRouter) and len(cp._servers) == 2
+        assert getenv(b"BLUEFOG_CP_RETRIES") is None
+        assert getenv(b"BLUEFOG_CP_BACKOFF_MS") == b"25"
+        cl.put("k", 7)  # the shards serve, replicating to each other
+        assert cl.get("k") == 7
+    finally:
+        cp.detach()
+    assert cp._servers == []
+    assert getenv(b"BLUEFOG_CP_RETRIES") == b"0"
+    assert os.environ["BLUEFOG_CP_BACKOFF_MS"] == "999"
+    assert getenv(b"BLUEFOG_CP_BACKOFF_MS") == b"999"
+
+
 @pytest.mark.parametrize("library", ["missing", "not_a_library"])
 def test_attach_raises_when_the_library_cannot_load(tmp_path, library):
     """No quiet fallback: a control plane asked for at world 1 whose

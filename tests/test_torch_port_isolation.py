@@ -99,6 +99,9 @@ _SLICE_NAMES = [
     # the wire (Queue 1, item 5(b1)) and the torchvision converters
     "PeerLostError", "QuorumLostError", "StaleIncarnationError",
     "cluster_health", "resnet_from_torch", "vgg_from_torch",
+    # failure detection (Queue 1, item 5(b2))
+    "dead_controllers", "suspect_controllers", "dead_ranks",
+    "membership_epoch", "shutdown_requested",
 ]
 _PARALLEL_SLICE_NAMES = ["ring_attention", "ring_attention_shard",
                          "ulysses_attention", "ulysses_attention_shard",
@@ -162,11 +165,8 @@ _ABSENT_ON_PURPOSE = {"parallel": {"ep_mesh", "tp_mesh", "pp_mesh",
                               "mesh", "machine_mesh", "rank_sharding",
                               "shard_rank_stacked"}}
 _NOT_YET = {"parallel": set(), "utils": set(),
-            # ROADMAP Queue 1: 5(b2) failure detection, 6 windows and
-            # push-sum, 8 serving
-            "top": {"dead_controllers", "suspect_controllers", "dead_ranks",
-                    "membership_epoch", "shutdown_requested",
-                    "win_accumulate", "win_accumulate_nonblocking",
+            # ROADMAP Queue 1: 6 windows and push-sum, 8 serving
+            "top": {"win_accumulate", "win_accumulate_nonblocking",
                     "win_associated_p", "win_associated_p_all",
                     "win_create", "win_fence", "win_free", "win_get",
                     "win_get_nonblocking", "win_lock", "win_mutex",
@@ -212,7 +212,7 @@ def test_port_top_level_names_against_jax():
     assert port - jax_names == set()
     assert jax_names - port == _ABSENT_ON_PURPOSE["top"] | _NOT_YET["top"]
     assert len(_ABSENT_ON_PURPOSE["top"]) == 7
-    assert len(_NOT_YET["top"]) == 32
+    assert len(_NOT_YET["top"]) == 27
     for name in ("resnet_from_torch", "vgg_from_torch"):
         assert getattr(bft, name) is getattr(bft.utils, name)
 

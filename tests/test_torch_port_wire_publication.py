@@ -56,7 +56,11 @@ def test_world4_publication_health_and_trigger(tmp_path, monkeypatch):
                      "BFT_CP_CONNECT_TIMEOUT": "60",
                      "BFT_METRICS_INTERVAL": "0.2",
                      "BFT_METRICS_PROM": str(tmp_path / "scrape.prom"),
-                     "BFT_FLIGHT_DIR": str(tmp_path)}.items():
+                     "BFT_FLIGHT_DIR": str(tmp_path),
+                     # the heartbeat's tick polls the dump trigger too;
+                     # its first tick comes after the job ends, so the
+                     # two explicit polls are the only ones
+                     "BFT_HEARTBEAT_INTERVAL": "600"}.items():
             monkeypatch.setenv(k, v)
         outs = run_world("wire", str(tmp_path), WORLD, timeout=240)
 
