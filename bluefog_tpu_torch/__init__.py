@@ -41,6 +41,7 @@ from .runtime.state import (
     get_skip_negotiate_stage,
     mpi_threads_supported,
     nccl_built,
+    unified_mpi_window_model_supported,
 )
 from .runtime.handles import poll, synchronize, wait
 
@@ -109,6 +110,31 @@ from .ops import (
     neighbor_allgather_nonblocking,
     CombinePlan,
     apply_plan,
+)
+
+# one-sided window ops and push-sum (ops/windows.py): the collective plane
+# over the process group, the hosted plane over the control plane
+from .ops import (
+    win_create,
+    win_free,
+    win_put,
+    win_put_nonblocking,
+    win_accumulate,
+    win_accumulate_nonblocking,
+    win_get,
+    win_get_nonblocking,
+    win_update,
+    win_update_then_collect,
+    win_fence,
+    win_poll,
+    win_wait,
+    get_win_version,
+    win_mutex,
+    win_lock,
+    win_associated_p,
+    win_associated_p_all,
+    turn_on_win_ops_with_associated_p,
+    turn_off_win_ops_with_associated_p,
 )
 
 # optimizer wrappers (reference: torch/optimizers.py)

@@ -16,7 +16,7 @@ At world 4 on the CPU:
         --num-iters 2
 
 ``--dist-optimizer win_put``, ``push_sum`` and ``pull_get`` run on the
-one-sided windows, which the port does not have yet (they raise).
+window optimizers, which the port does not have yet (they raise).
 """
 
 from __future__ import annotations
@@ -120,9 +120,9 @@ def main(argv=None) -> float:
     args = parse_args(argv)
     if args.dist_optimizer in WINDOW_KINDS:
         raise NotImplementedError(
-            f"--dist-optimizer {args.dist_optimizer} runs on the one-sided "
-            "windows, which the PyTorch port does not have yet: ROADMAP.md "
-            "Queue 1, item 6 (windows and push-sum)")
+            f"--dist-optimizer {args.dist_optimizer} runs on the window "
+            "optimizers, which the PyTorch port does not have yet: "
+            "ROADMAP.md Queue 1, item 6(c) (the window optimizers)")
     bf.init(device=args.device)
     try:
         return _run(args, torch.device(args.device))

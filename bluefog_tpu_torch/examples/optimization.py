@@ -14,8 +14,8 @@ descent reaches. One process per rank: each holds its own ``X [m, n]``,
 collective of this rank's tensor. Gradient tracking keeps the reference's
 overlap: two nonblocking ``neighbor_allreduce`` calls in flight while the
 new local gradient is computed. Push-DIGing (``push_diging``) runs on the
-one-sided windows (``win_accumulate``), which the port does not have yet;
-it raises and names the roadmap item.
+one-sided windows (``win_accumulate``); its port is the examples' window
+part, not done yet: it raises and names the roadmap item.
 
 As in the JAX example, the l2 regularizer is the smooth
 ``0.5 * rho * ||w||^2``.
@@ -176,9 +176,8 @@ def push_diging(grad_fn, w_opt, size: int, n: int, maxite: int = 500,
     """Nedic et al. 2017, Alg. 2, over one-sided windows: it needs
     ``win_create``/``win_accumulate``/``win_update_then_collect``."""
     raise NotImplementedError(
-        "push_diging runs on the one-sided windows (win_accumulate), which "
-        "the PyTorch port does not have yet: ROADMAP.md Queue 1, item 6 "
-        "(windows and push-sum)")
+        "push_diging (over win_accumulate) is not ported yet: ROADMAP.md "
+        "Queue 1, item 4 (the examples' window parts)")
 
 
 ALGORITHMS = {

@@ -16,7 +16,7 @@ Run at world 4 on the CPU (one process per rank):
         -m bluefog_tpu_torch.examples.resnet --device cpu --epochs 2 \\
         --batch-size 4 --steps-per-epoch 6 --classes 4
 
-``--dist-optimizer win_put`` runs on the one-sided windows, which the port
+``--dist-optimizer win_put`` runs on a window optimizer, which the port
 does not have yet (it raises).
 """
 
@@ -121,9 +121,9 @@ def build(args):
     start_epoch)``."""
     if args.dist_optimizer == "win_put":
         raise NotImplementedError(
-            "--dist-optimizer win_put runs on the one-sided windows, which "
-            "the PyTorch port does not have yet: ROADMAP.md Queue 1, item 6 "
-            "(windows and push-sum)")
+            "--dist-optimizer win_put runs on a window optimizer, which "
+            "the PyTorch port does not have yet: ROADMAP.md Queue 1, item "
+            "6(c) (the window optimizers)")
     bf.init(device=args.device)
     n = bf.size()
     dev = torch.device(args.device)

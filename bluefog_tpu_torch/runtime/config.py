@@ -169,6 +169,36 @@ KNOBS: Tuple[Knob, ...] = (
          "path of a prebuilt native control-plane library to load instead "
          "of building `csrc/bf_runtime.cc` into `bluefog_tpu_torch/_build/`",
          "BLUEFOG_NATIVE_SO"),
+    # -- the window layer (ops/windows.py, ops/codec.py) ---------------------
+    Knob("BFT_WIN_PLANE", "str", None,
+         "window gossip plane policy: `auto` (default: the hosted mailbox "
+         "plane when a control plane of more than one controller is "
+         "attached; else the collective plane), `compiled` (collective "
+         "plane forced: one lockstep point-to-point round per circulant "
+         "shift), `hosted` (mailbox plane forced)", "BLUEFOG_WIN_PLANE"),
+    Knob("BFT_WIN_CODEC", "str", None,
+         "wire codec of hosted-window deposits: `none` (default, the raw "
+         "wire), `int8` / `fp8` (per-block-scaled quantization; also "
+         "applied to the collective plane's blend) or `topk:<frac>` (top-k "
+         "with an error-feedback residual; `topk` = `topk:0.01`). Per-edge "
+         "overrides append `;<src>><dst>=<spec>` terms. Read once per "
+         "window at `win_create`", "BLUEFOG_WIN_CODEC"),
+    Knob("BFT_WIN_CODEC_BLOCK", "int", 4096,
+         "elements per quantization block of the `int8`/`fp8` codecs (the "
+         "block size rides the payload, so origin and owner may differ)",
+         "BLUEFOG_WIN_CODEC_BLOCK"),
+    Knob("BFT_WIN_STRICT", "bool", False,
+         "`1`: a `require_mutex` `win_update` raises when it drains a "
+         "deposit whose version counter is 0 (an origin skipped the mutex "
+         "protocol) instead of folding it", "BLUEFOG_WIN_STRICT"),
+    Knob("BFT_WIN_DRAIN_TIMEOUT", "float", 60.0,
+         "seconds a `win_update` drain waits for the continuation chunks "
+         "of a deposit before raising (the origin died mid-deposit)",
+         "BLUEFOG_WIN_DRAIN_TIMEOUT"),
+    Knob("BFT_MAX_WIN_SENT_LENGTH", "int", 16 * 1024 * 1024,
+         "hosted-window deposit chunk size in BYTES (the reference counted "
+         "elements); values below 64 KiB are clamped to it with a warning",
+         "BLUEFOG_MAX_WIN_SENT_LENGTH"),
     # -- failure detection (runtime/heartbeat.py, watchdog.py, handles.py,
     #    ops/neighbors.py) ---------------------------------------------------
     Knob("BFT_HEARTBEAT_INTERVAL", "float", 5.0,

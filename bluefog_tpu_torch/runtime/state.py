@@ -22,7 +22,11 @@ one controller, the heartbeat monitor (``runtime/heartbeat.py``); a
 process restarted with ``BFT_INCARNATION > 0`` enters quarantine.
 ``shutdown`` announces itself to the peers before its final flush and
 stops the monitor before the control plane detaches, as the JAX package
-does (``bluefog_tpu/runtime/state.py:306-352``).
+does (``bluefog_tpu/runtime/state.py:306-352``), and the stall watchdog
+too (JAX stops it after: its poll of the dump trigger could then use the
+client being freed). ``shutdown`` releases the
+hosted windows' server state before the control plane detaches, and
+``set_topology`` refuses while windows exist (their edges are frozen).
 
 Entry points run on ``cuda`` by default. With no GPU present they raise and
 say to pass ``device="cpu"``; nothing quietly carries on on the CPU.
@@ -88,9 +92,11 @@ class _State:
         self.timeline = None
         self.watchdog: Optional[StallWatchdog] = None
         self.peer_monitor: Optional[_heartbeat.PeerMonitor] = None
-        # the window table the tuner's levers act on; empty until the
-        # window layer is ported
+        # window registry, name -> ops.windows.Window (the tuner's levers
+        # act on it too); the plane policy is read once per job
         self.windows: dict = {}
+        self.win_plane = None
+        self.win_ops_with_associated_p = False
         self._plan_cache: dict = {}
         # hashes of dynamic combine matrices every controller agreed on,
         # and the re-arm cadence counter
@@ -217,6 +223,12 @@ def init(
     # registered but kept out of averaging until complete_quarantine().
     _heartbeat.enter_quarantine(_cp.process_index())
     st.windows = {}
+    # one plane-policy verdict per job: a mid-job environment change
+    # cannot give two windows different planes
+    from ..ops.windows import _plane_policy
+
+    st.win_plane = _plane_policy()
+    st.win_ops_with_associated_p = False
     st._plan_cache = {}
     st._topo_check_agreed = set()
     st._topo_check_calls = 0
@@ -280,10 +292,20 @@ def shutdown() -> None:
     if st.peer_monitor is not None:
         st.peer_monitor.stop()
         st.peer_monitor = None
-    _cp.detach()
+    # the watchdog polls the dump trigger through the client: it stops
+    # before the client is freed under it
     if st.watchdog is not None:
         st.watchdog.stop()
         st.watchdog = None
+    # release hosted windows' server state (published rows, pending
+    # deposits) BEFORE detaching the client it needs; unaligned, since
+    # peers may already be gone
+    for win in list(st.windows.values()):
+        try:
+            win.close(aligned=False)
+        except Exception:  # noqa: BLE001 — teardown must not raise
+            pass
+    _cp.detach()
     # close open per-op spans BEFORE the timeline so the trace stays
     # balanced (every B gets its E edge)
     handles.close_all_spans()
@@ -374,7 +396,8 @@ def local_rank() -> int:
 def set_topology(topology: Optional[nx.DiGraph] = None,
                  is_weighted: bool = False) -> bool:
     """Install a new virtual topology; returns False if rejected (wrong
-    node count or not a DiGraph). An equivalent topology is a no-op."""
+    node count, not a DiGraph, or windows exist). An equivalent topology is
+    a no-op."""
     st = _state
     st.check_initialized()
     if topology is None:
@@ -386,6 +409,12 @@ def set_topology(topology: Optional[nx.DiGraph] = None,
     if topology.number_of_nodes() != st.size:
         logger.error("topology has %d nodes but runtime has %d ranks",
                      topology.number_of_nodes(), st.size)
+        return False
+    if st.windows:
+        # a window's edges are frozen at creation (MPI_Win_create against
+        # the graph communicator)
+        logger.error(
+            "cannot change topology while windows exist; call win_free first")
         return False
     if (st.topology is not None
             and topology_util.IsTopologyEquivalent(topology, st.topology)
@@ -446,3 +475,10 @@ def nccl_built() -> bool:
     """Whether ``torch.distributed`` has NCCL, the transport the port uses
     on CUDA (the JAX package answers False: it has no NCCL)."""
     return dist.is_available() and dist.is_nccl_available()
+
+
+def unified_mpi_window_model_supported() -> bool:
+    """True: the mailbox window model keeps one coherent store per rank by
+    construction, the property the reference probes MPI for
+    (MPI_WIN_UNIFIED, basics.py:119-128)."""
+    return True

@@ -17,6 +17,15 @@ the JAX package's ``jax.profiler.TraceAnnotation``: under ``torch.profiler``
 the CUDA kernels a span issues land inside its named range. It does so
 whether or not the timeline is on. A span times the host's issue of the
 work, as the JAX package's spans time a jitted dispatch.
+
+Flow events (:func:`timeline_flow_start`/:func:`timeline_flow_finish`,
+``ph: "s"``/``"f"``, category ``bf.flow``) bind an event in one process's
+trace to one in another's by id: the hosted window plane opens one at each
+deposit (``WIN_DEPOSIT``, id ``origin << 32 | counter``, the deposit's tag
+sequence) and closes it where the owner's drain folds that deposit, so the
+merged per-rank files draw an arrow from the ``win_put`` to the
+``win_update``. Under ``torch.profiler`` each flow event is also an empty
+``record_function`` range named ``<name>.s.<id>`` / ``<name>.f.<id>``.
 """
 
 from __future__ import annotations
@@ -92,10 +101,10 @@ class Timeline:
         with self._native_mu:
             if self._native is None:
                 return
-            if ev["ph"] == "C":
+            if ev["ph"] in ("C", "s", "f"):
                 self._native_lib.bf_timeline_event2(
                     self._native, ev["name"].encode(), ev["cat"].encode(),
-                    b"C", int(ev["ts"]), ev["tid"],
+                    ev["ph"].encode(), int(ev["ts"]), ev["tid"],
                     int(ev["args"]["value"]))
             else:
                 self._native_lib.bf_timeline_event(
@@ -124,6 +133,26 @@ class Timeline:
         self._put({"name": name, "cat": "bf", "ph": "C", "ts": self._now_us(),
                    "pid": self._pid, "tid": tid,
                    "args": {"value": int(value)}})
+
+    def _flow(self, phase: str, name: str, flow_id: int, tid: int) -> None:
+        ev = {"name": name, "cat": "bf.flow", "ph": phase,
+              "id": int(flow_id), "ts": self._now_us(), "pid": self._pid,
+              "tid": tid}
+        if phase == "f":
+            ev["bp"] = "e"  # bind to the enclosing slice
+        if self._native is not None:
+            # the native writer carries the id in its value slot
+            ev["args"] = {"value": int(flow_id)}
+        self._put(ev)
+
+    def flow_start(self, name: str, flow_id: int, tid: int = 0) -> None:
+        """Open a cross-process flow arrow (``ph: "s"``); ``flow_id`` is
+        the binding key both processes derive."""
+        self._flow("s", name, flow_id, tid)
+
+    def flow_finish(self, name: str, flow_id: int, tid: int = 0) -> None:
+        """Close a flow arrow (``ph: "f"``, bound to the enclosing slice)."""
+        self._flow("f", name, flow_id, tid)
 
     # -- writer side -------------------------------------------------------
 
@@ -181,6 +210,43 @@ def timeline_end_activity(tensor_name: str, tid: int = 0) -> bool:
     if tl is None:
         return False
     tl.activity_end(tensor_name, tid)
+    return True
+
+
+def timeline_counter(name: str, value, tid: int = 0) -> bool:
+    """Sample a chrome counter track (no-op when the timeline is off)."""
+    tl = _timeline()
+    if tl is None:
+        return False
+    tl.counter(name, int(value), tid)
+    return True
+
+
+def _profiler_mark(label: str) -> None:
+    """An empty ``record_function`` range, only while a profiler runs."""
+    if torch.autograd.profiler._is_profiler_enabled:
+        with torch.profiler.record_function(label):
+            pass
+
+
+def timeline_flow_start(name: str, flow_id: int, tid: int = 0) -> bool:
+    """Open flow ``flow_id`` (the timeline's ``ph: "s"``, and a
+    ``<name>.s.<id>`` range under ``torch.profiler``)."""
+    _profiler_mark(f"{name}.s.{int(flow_id)}")
+    tl = _timeline()
+    if tl is None:
+        return False
+    tl.flow_start(name, flow_id, tid)
+    return True
+
+
+def timeline_flow_finish(name: str, flow_id: int, tid: int = 0) -> bool:
+    """Close flow ``flow_id`` (``ph: "f"``; ``<name>.f.<id>``)."""
+    _profiler_mark(f"{name}.f.{int(flow_id)}")
+    tl = _timeline()
+    if tl is None:
+        return False
+    tl.flow_finish(name, flow_id, tid)
     return True
 
 

@@ -5,11 +5,8 @@ cheap-neighbor-gossip bet (the window plane, the window codec, the
 topology's in-degree) are static, while the time-series plane
 (``runtime/timeseries.py``) measures what they trade off. This controller,
 ticked from the heartbeat and sampler cadence, reads the streaming series
-and moves three levers:
+and moves two levers:
 
-* **per-edge plane**: measured per-edge wire bytes feed each hosted
-  window's ``PlanePlanner.ingest_live`` as online overrides of its static
-  size-floor estimate; a re-plan happens only when a verdict flips.
 * **per-edge codec**: sustained-slow out-edges escalate
   ``none -> int8 -> topk`` through ``Window.set_edge_codec``; EF-residual
   pressure or a ``consensus_stall`` alert de-escalates.
@@ -19,9 +16,12 @@ and moves three levers:
   ``bf.tune.demoted`` for the optimizers' healed tables, and promoted back
   on recovery; the round trip restores the weight matrix exactly.
 
-The levers act on the process's windows (``_global_state().windows``);
-with none, which is every port job until the window layer lands, a
-decision moves nothing (``_actuate`` reports it skipped).
+The codec lever acts on the process's hosted windows
+(``_global_state().windows``); with none open, a codec decision moves
+nothing (``_actuate`` reports it skipped). JAX's third lever, the
+per-edge plane, feeds a window's plane planner; the port has no planner
+(one rank per process leaves no edge local to a controller), so it has no
+such lever.
 
 Safety properties:
 
@@ -152,8 +152,8 @@ class Snapshot:
 class Decision:
     """One actuation the decision table emitted."""
 
-    lever: str                          # "plane" | "codec" | "indegree"
-    target: object                      # Edge, rank, or None (plane)
+    lever: str                          # "codec" | "indegree"
+    target: object                      # Edge or rank
     action: str                         # escalate/deescalate/demote/...
     arg: object = None                  # codec spec, dropped-edge list...
     reason: str = ""
@@ -380,38 +380,6 @@ class Tuner:
 
     # -- actuation ----------------------------------------------------------
 
-    def _feed_planner(self, snap: Snapshot) -> bool:
-        """Plane lever: push measured per-edge wire bytes into every
-        hosted window's planner as online overrides. Returns True when
-        any planner's size-floor verdict flipped (== a re-plan was
-        scheduled); otherwise the ingest is free."""
-        from . import timeseries as _ts
-        from .state import _global_state
-
-        store = _ts.store()
-        per_deposit: Dict[Edge, float] = {}
-        for name, es in store.edges().items():
-            if not es.deposits:
-                continue
-            try:
-                src_s, dst_s = name.split("->")
-                e = (int(src_s), int(dst_s))
-            except ValueError:
-                continue
-            per_deposit[e] = es.bytes / es.deposits
-        if not per_deposit:
-            return False
-        flipped = False
-        try:
-            st = _global_state()
-            for win in list(st.windows.values()):
-                planner = getattr(win, "_planner", None)
-                if planner is not None:
-                    flipped |= planner.ingest_live(per_deposit)
-        except Exception:  # noqa: BLE001
-            return False
-        return flipped
-
     def _leader(self) -> bool:
         """In-degree moves are actuated by ONE controller (the lowest
         live process index) — every tuner decides, one writes, everybody
@@ -474,7 +442,7 @@ class Tuner:
                 current.pop(d.target, None)
             edges = sorted({e for s in current.values() for e in s})
             return _publish_demotions(cl, edges, snap.epoch)
-        return True  # "plane" already actuated through ingest_live
+        return False
 
     # -- the tick -----------------------------------------------------------
 
@@ -491,10 +459,6 @@ class Tuner:
         self._last_tick = now
         snap = self.gather(cl, now)
         decisions = self.decide(snap)
-        if self._feed_planner(snap):
-            decisions.append(Decision(
-                "plane", None, "replan",
-                reason="measured edge bytes flipped a size-floor verdict"))
         applied: List[Decision] = []
         for d in decisions:
             # EPOCH FENCE: membership moved since the snapshot was taken

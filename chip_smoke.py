@@ -193,6 +193,33 @@ Phases (each raises on failure; the script then exits non-zero):
    helper's ``bf.shutdown()`` shows in ``shutdown_requested()`` within
    3 intervals and this process's own shutdown does not wait out its
    grace.
+16. windows, the one-sided window layer (``ops/windows.py``): (a) the
+   collective plane at world 1 (NCCL) on the headline LM's seeded
+   parameters packed into one f32 row of 335,562,752 elements with
+   ``fusion.pack``: ``win_create``, ``win_put(self_weight=0.5)``,
+   ``win_accumulate``, ``win_get``, ``win_update`` (clone and reset),
+   ``win_update_then_collect``, ``win_fence``, ``get_win_version``,
+   ``win_mutex``/``win_lock`` and associated p on and off, each against
+   its closed form at n = 1 bit for bit; the ms of ``win_put`` and
+   ``win_update`` beside their bytes bound, the peak memory, and 0 bytes
+   left after ``win_free``. (b) A virtual window group of WIN_VN ranks on
+   ExponentialTwoGraph (d_max 3), rows of WIN_ROW elements in f32 and
+   bf16, through the port's per-rank receiver step (``fold_arrival``:
+   the slot blend, the p mail and the version bump on each virtual rank's
+   scalar host), ``combine`` and ``p_combine``, with a device copy for
+   the P2P round, against an f64 oracle: a dynamic partial-destination
+   put with its versions, stacked accumulates with self scaling,
+   WIN_PS_ROUNDS rounds of push-sum with sum(p) = 8 and the numerators'
+   mass conserved (``TOL_WIN``, ``TOL_WIN_MASS``); a planted slot off by
+   one must fail. (c) The hosted
+   plane on a loopback control plane of one, the mailbox cap raised to
+   WIN_CAP_MB: ``win_create`` publishes the row; per codec of
+   WIN_CODECS one full-width deposit of the card's row through the
+   window's encode, ``_pack_deposit``, the tagged append, the drain and
+   ``_finish_deposit`` into slot 0, copied back to the card: the row bit
+   for bit (``none``), decode(encode(row)) bit for bit (int8, fp8), the
+   row exactly with the error-feedback residual added (top-k); the wire
+   bytes and the ms of each leg.
 
 The line before the last is the ``kernels`` JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -210,6 +237,9 @@ import sys
 import tempfile
 import time
 
+import numpy as np
+
+T_IMPORTED = time.perf_counter()
 HERE = os.path.dirname(os.path.abspath(__file__))
 OUT = os.path.join(HERE, "chiprun_out", "chip_smoke.json")
 
@@ -485,6 +515,27 @@ WIRE_STRIPE_BYTES = 4 << 20
 # is LIVE_SYNC_PROBE_S. (d) Death must be seen within the timeout plus 3
 # intervals of the SIGKILL. (f) The shutdown grace is LIVE_GRACE_S, so a
 # shutdown that waited it out shows.
+# the windows phase (16). (a) The headline LM's parameters packed into one
+# f32 row (335,562,752 elements) as a window at world 1; WIN_TIME_REPS timed
+# calls of win_put and win_update. (b) A virtual group of WIN_VN ranks on
+# ExponentialTwoGraph (d_max 3), WIN_ROW elements a row, against an f64
+# oracle: f32 rounds once per op (measured max|err|/max|oracle| in PERF.md),
+# bf16 once per cast (2^-9 each, a few casts per value); the mass is the sum
+# of the numerators over every rank, relative to the inputs' (1 + 0.5 randn,
+# so it cannot cancel): on an H100 it read 3.170e-12 (f32) and 3.019e-5
+# (bf16) in three runs of the seeded data, and each limit sits about 5x
+# above its reading. A slot off by one moves a value by O(1). (c) One
+# full-width deposit per codec; the cap holds one f32 row (1280 MiB) and
+# its record headers.
+WIN_VN = 8
+WIN_ROW = 64 << 20
+WIN_PS_ROUNDS = 5
+WIN_TIME_REPS = 5
+TOL_WIN = {"float32": 1e-5, "bfloat16": 3e-2}
+TOL_WIN_MASS = {"float32": 1.6e-11, "bfloat16": 1.5e-4}
+WIN_CODECS = ("none", "int8", "fp8", "topk:0.01")
+WIN_CAP_MB = 1600
+
 HELPER_ARG = "--liveness-helper"
 LIVE_WORLD = 2
 LIVE_HB_INTERVAL = 0.25
@@ -3731,6 +3782,414 @@ def liveness(bf, fl, torch, card: str, obs: dict, wire_run: dict) -> dict:
     return out
 
 
+# -- phase 16: the window layer ---------------------------------------------
+
+
+def _win_oracle_blend(mails_o, lay, xs_o, tables, accumulate: bool) -> None:
+    """The f64 oracle of one exchange: ``mail[dst][k] (+)= x[src] * w``
+    for every edge its source names this call."""
+    for src, table in enumerate(tables):
+        for dst, w in table.items():
+            k = lay.slot_of[dst][src]
+            if accumulate:
+                mails_o[dst][k] += xs_o[src] * w
+            else:
+                mails_o[dst][k] = xs_o[src] * w
+
+
+def _win_vexchange(W, lay, mails, hosts, xs, ps, tables, accumulate: bool,
+                   fault=None) -> None:
+    """One exchange of the virtual group through the port's own receiver
+    step (``windows.fold_arrival``): rank ``me``'s arrival on each shift is
+    a device copy of its in-neighbour's tensor, in place of the P2P round,
+    with the sender's weight for ``me`` or inactive (the scratch slot) and
+    the sender's p (``ps``, None with associated p off); the p mail and
+    the version bump land on ``hosts[me]``, as on the exchange's receiving
+    side. ``fault="slot_off_by_one"`` writes each active arrival one slot
+    over."""
+    for me in range(lay.n):
+        for si, s in enumerate(lay.shifts):
+            if not lay.has_edge[si, me]:
+                continue
+            src = (me - s) % lay.n
+            w = tables[src].get(me)
+            slot = int(lay.slot[si, me])
+            if fault == "slot_off_by_one" and w is not None:
+                slot = (slot + 1) % lay.d_max
+            if W.fold_arrival(mails[me], hosts[me], me, slot, xs[src].clone(),
+                              w is not None, 0.0 if w is None else w,
+                              0.0 if ps is None else ps[src], accumulate,
+                              ps is not None):
+                hosts[me].bump_versions([(me, slot)])
+
+
+def _win_nerr(torch, got: list, want: list) -> float:
+    scale = max(float(w.abs().max()) for w in want)
+    return max(float((g.double() - w).abs().max()) for g, w in
+               zip(got, want)) / max(scale, 1e-30)
+
+
+def win_virtual(bf, torch, dev, dtype, fault=None) -> dict:
+    """(b) A virtual window group of WIN_VN ranks on ExponentialTwoGraph
+    (d_max 3 at 8), one WIN_ROW-element tensor each, driven through the
+    port's per-rank steps (the slot write and scratch redirect, the
+    accumulate's read-add-write, ``combine`` with reset, ``p_combine``)
+    against an f64 oracle on the card: a dynamic partial-destination put
+    read back with distinct slot weights; stacked accumulates with self
+    scaling; WIN_PS_ROUNDS rounds of push-sum. Returns the errors."""
+    from bluefog_tpu_torch.ops import windows as W
+
+    n, row = WIN_VN, WIN_ROW
+    lay = W._GraphLayout(bf.topology_util.ExponentialTwoGraph(n), n)
+    d = lay.d_max
+    gen = torch.Generator(device=dev).manual_seed(16)
+    xs = [(1.0 + 0.5 * torch.randn(row, generator=gen, device=dev)).to(dtype)
+          for _ in range(n)]
+    xs_o = [x.double() for x in xs]
+    out = {}
+
+    def fresh():
+        return ([torch.zeros((d + 1, row), dtype=dtype, device=dev)
+                 for _ in range(n)],
+                [torch.zeros((d, row), dtype=torch.float64, device=dev)
+                 for _ in range(n)],
+                [W._LocalWinHost("virtual", n, d, r) for r in range(n)])
+
+    # a dynamic partial-destination put: each rank writes its right
+    # neighbour only (weight 2); the other edges' writes land in scratch
+    # and bump no version
+    mails, mails_o, hosts = fresh()
+    tables = [{(r + 1) % n: 2.0} for r in range(n)]
+    _win_vexchange(W, lay, mails, hosts, xs, None, tables, False, fault)
+    _win_oracle_blend(mails_o, lay, xs_o, tables, False)
+    if fault is None:
+        for r in range(n):
+            want_v = np.zeros(d, np.int64)
+            want_v[lay.slot_of[r][(r - 1) % n]] = 1
+            if not np.array_equal(hosts[r].version[r], want_v):
+                raise RuntimeError(
+                    f"windows (b): rank {r}'s versions after the partial "
+                    f"put are {hosts[r].version[r].tolist()}, expected "
+                    f"{want_v.tolist()}")
+    got, want = [], []
+    for r in range(n):
+        nw = [0.1 * (k + 1) for k in range(d)]
+        got.append(W.combine(xs[r], mails[r], 0.5, nw, reset=range(d)))
+        want.append(0.5 * xs_o[r] + sum(
+            float(np.float32(w)) * mails_o[r][k] for k, w in enumerate(nw)))
+        if fault is None and float(mails[r][:d].abs().max()) != 0.0:
+            raise RuntimeError("windows (b): reset left a slot non-zero")
+    out["partial_put"] = _win_nerr(torch, got, want)
+    del got, want, mails, mails_o
+    if fault is not None:
+        return out
+
+    # stacked accumulates (weight 0.5 to every out-neighbour), each
+    # followed by the self scaling x * 0.5, then the full collect
+    mails, mails_o, hosts = fresh()
+    tables = [{dst: 0.5 for dst in lay.out_nbrs[r]} for r in range(n)]
+    for _ in range(2):
+        _win_vexchange(W, lay, mails, hosts, xs, None, tables, True)
+        _win_oracle_blend(mails_o, lay, xs_o, tables, True)
+    got, want = [], []
+    for r in range(n):
+        self_r = (xs[r].float() * 0.5).to(dtype)
+        got.append(W.combine(self_r, mails[r], 1.0, [1.0] * d,
+                             reset=range(d)))
+        want.append(0.5 * xs_o[r] + mails_o[r].sum(0))
+    out["stacked_acc"] = _win_nerr(torch, got, want)
+    del got, want, mails, mails_o
+
+    # push-sum: numerators and p through WIN_PS_ROUNDS rounds of
+    # accumulate (1/(outdeg+1) to self and to every out-neighbour) and
+    # collect, against the same algebra in f64
+    mails, mails_o, hosts = fresh()
+    num = [x.clone() for x in xs]
+    num_o = [x.clone() for x in xs_o]
+    p = [1.0] * n
+    for _ in range(WIN_PS_ROUNDS):
+        sw = [1.0 / (len(lay.out_nbrs[r]) + 1) for r in range(n)]
+        tables = [{dst: sw[r] for dst in lay.out_nbrs[r]} for r in range(n)]
+        _win_vexchange(W, lay, mails, hosts, num, p, tables, True)
+        _win_oracle_blend(mails_o, lay, num_o, tables, True)
+        acc = W._win_acc_dtype(dtype)
+        num = [(num[r].to(acc) * float(np.float32(sw[r]))).to(dtype)
+               for r in range(n)]
+        num_o = [num_o[r] * sw[r] for r in range(n)]
+        p = [p[r] * sw[r] for r in range(n)]
+        for r in range(n):
+            num[r] = W.combine(num[r], mails[r], 1.0, [1.0] * d,
+                               reset=range(d))
+            num_o[r] = num_o[r] + mails_o[r].sum(0)
+            mails_o[r].zero_()
+            p[r] = W.p_combine(1.0, p[r], [1.0] * d,
+                               hosts[r].read_p_mail_owned()[r])
+            hosts[r].write_p_mail_rows({r: np.zeros(d)})
+    # the oracle's p: each round keeps sw * p and adds each in-neighbour's
+    # sw * p, in f64
+    q = [1.0] * n
+    for _ in range(WIN_PS_ROUNDS):
+        sw = [1.0 / (len(lay.out_nbrs[r]) + 1) for r in range(n)]
+        q = [sw[r] * q[r] + sum(q[src] * sw[src] for src in lay.in_nbrs[r])
+             for r in range(n)]
+    out["pushsum"] = _win_nerr(torch, num, num_o)
+    out["p_sum"] = sum(p)
+    out["p_err"] = max(abs(a - b) for a, b in zip(p, q))
+    mass0 = sum(float(x.sum(dtype=torch.float64)) for x in xs_o)
+    mass = sum(float(x.double().sum()) for x in num)
+    out["mass_rel"] = abs(mass - mass0) / abs(mass0)
+    return out
+
+
+def win_collective(bf, torch, dev, card: str) -> tuple:
+    """(a) The collective plane at world 1 on the headline LM's seeded
+    parameters packed into one f32 row: every op against its closed form
+    at n = 1, the ms of ``win_put`` and ``win_update`` beside their bytes
+    bound, peak memory, and nothing left on the card after ``win_free``.
+    Returns (results, the packed row)."""
+    import gc
+
+    from bluefog_tpu_torch.ops import fusion
+
+    model = headline_model(bf, torch, dev, None)
+    params = [p.detach() for p in model.parameters()]
+    spec = fusion.make_spec(params)
+    row = fusion.pack(params, spec)
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    numel = row.numel()
+    if row.dtype != torch.float32 or numel != spec.total:
+        raise RuntimeError(f"windows (a): packed row {row.dtype} {numel}")
+    torch.cuda.synchronize()
+    m0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    name = "win16"
+    bad = []
+
+    def same(label, got, want):
+        if not torch.equal(got, want):
+            bad.append(label)
+
+    if not bf.win_create(row, name) or bf.win_create(row, name):
+        bad.append("win_create")
+    same("update after create", bf.win_update(name, clone=True), row)
+    half, quarter = row * 0.5, row * 0.25
+    bf.win_put(row, name, self_weight=0.5)
+    same("win_put self_weight 0.5", bf.win_update(name, clone=True), half)
+    bf.win_accumulate(row, name, self_weight=0.25)
+    same("win_accumulate self_weight 0.25",
+         bf.win_update(name, clone=True), quarter)
+    if not bf.win_get(name):
+        bad.append("win_get")
+    same("win_get leaves self", bf.win_update(name, clone=True), quarter)
+    same("win_update 2.0 reset", bf.win_update(
+        name, self_weight=2.0, neighbor_weights={}, reset=True), half)
+    same("win_update_then_collect", bf.win_update_then_collect(name), half)
+    if not bf.win_fence(name) or bf.get_win_version(name) != {}:
+        bad.append("win_fence / get_win_version")
+    with bf.win_mutex(name, for_self=True), bf.win_lock(name):
+        pass
+    bf.turn_on_win_ops_with_associated_p()
+    bf.win_accumulate(row, name, self_weight=0.5)
+    p1 = bf.win_associated_p(name)
+    bf.win_update(name, self_weight=2.0, neighbor_weights={})
+    p2 = list(bf.win_associated_p_all(name))
+    bf.turn_off_win_ops_with_associated_p()
+    bf.win_accumulate(row, name, self_weight=0.5)
+    p3 = bf.win_associated_p(name)
+    if (p1, p2, p3) != (0.5, [1.0], 1.0):
+        bad.append(f"associated p {(p1, p2, p3)}")
+    del half, quarter
+    put_ms = cuda_ms(lambda: bf.win_put(row, name, self_weight=0.5),
+                     WIN_TIME_REPS)
+    upd_ms = cuda_ms(lambda: bf.win_update(name), WIN_TIME_REPS)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - m0
+    bf.win_free(name)
+    gc.collect()
+    torch.cuda.synchronize()
+    left = torch.cuda.memory_allocated() - m0
+    if left:
+        bad.append(f"win_free left {left} bytes on the card")
+    if bad:
+        raise RuntimeError("windows (a): " + "; ".join(bad))
+    # each of put (the self scaling) and update (the self combine) at n = 1
+    # reads the row once and writes it once
+    bound = 2 * numel * 4 / PEAK_BYTES * 1e3
+    out = {"numel": numel, "put_ms": put_ms, "update_ms": upd_ms,
+           "bound_ms": bound, "peak_bytes": peak, "left_bytes": left}
+    log(f"windows (a) ({card}): the collective plane at world 1 on the "
+        f"packed headline parameters ({numel} f32): every closed form "
+        f"exact; win_put {put_ms:.4f} ms and win_update {upd_ms:.4f} ms "
+        f"(bytes bound {bound:.4f} ms at 3.35 TB/s each); peak "
+        f"{peak / 2**30:.3f} GiB above the row; 0 bytes left after win_free")
+    return out, row
+
+
+def win_hosted_wire(bf, torch, dev, row, card: str) -> dict:
+    """(c) The hosted wire at full width on a loopback control plane of one
+    (``BFT_WIN_PLANE=hosted``, the mailbox cap raised to WIN_CAP_MB to hold
+    one full deposit): ``win_create`` publishes the row (int8 state: a raw
+    f32 row is above the server's 1 GiB message ceiling); then, per codec,
+    one deposit of the card's row through the window's own path
+    (``_encode_row``, ``_pack_deposit``, the tagged append, the drain's
+    reassembly, ``_finish_deposit`` into slot 0), the slot copied back to
+    the card and held to its exact expectation."""
+    from bluefog_tpu_torch.ops import codec as cd
+    from bluefog_tpu_torch.ops import fusion
+    from bluefog_tpu_torch.ops import windows as W
+    from bluefog_tpu_torch.runtime import control_plane as cp
+
+    # BFT_WIN_CODEC=int8 at creation: the published state row rides int8
+    # (a raw f32 row of 1.34 GB is above the server's 1 GiB per-message
+    # ceiling); each deposit below sets its own codec
+    env = {"BFT_CP_HOST": "127.0.0.1", "BFT_CP_PORT": str(_free_port()),
+           "BFT_WIN_PLANE": "hosted", "BFT_CP_MAILBOX_MAX_MB": str(WIN_CAP_MB),
+           "BFT_WIN_CODEC": "int8", "BFT_CYCLE_TIME": "600000"}
+    out = {"codecs": {}}
+    os.environ.update(env)
+    try:
+        bf.init()
+        t = time.perf_counter()
+        bf.win_create(row, "win16h", zero_init=True)
+        out["create_ms"] = (time.perf_counter() - t) * 1e3
+        win = W._get_window("win16h")
+        if not win.hosted or win.layout.d_max != 1:
+            raise RuntimeError("windows (c): not a hosted window of one slot")
+        n = row.numel()
+        key = win._dep_key(0, 0)
+        wire_t = W._win_wire_dtype(win.mail_dtype)
+        cl = cp.client()
+        folds = []
+        finish = win._finish_deposit
+
+        def timed_finish(pair, pend):
+            t0 = time.perf_counter()
+            finish(pair, pend)
+            folds.append(time.perf_counter() - t0)
+
+        win._finish_deposit = timed_finish
+        for seq, spec in enumerate(WIN_CODECS, 1):
+            win.codec = cd.resolve(spec)
+            win._ef_rows.clear()
+            win._ef_ref.clear()
+            win._mail_rows[0][0][...] = 0.0
+            ms = {}
+            t = time.perf_counter()
+            host = fusion.to_host(row)
+            ms["d2h"] = (time.perf_counter() - t) * 1e3
+            t = time.perf_counter()
+            if win.codec is None:
+                payload = np.ascontiguousarray(cd.cast(
+                    host * np.float32(1.0), wire_t))
+                cid = 0
+            else:
+                payload, _, _ = win._encode_row(0, host, wire_t, W._DEP_PUT)
+                cid = win.codec.cid
+            ms["encode"] = (time.perf_counter() - t) * 1e3
+            recs = W._pack_deposit(W._DEP_PUT, 0, 0.0, payload,
+                                   codec_id=cid, wt=1.0)
+            tags = W._deposit_tags(seq, len(recs))
+            names = [key] * len(recs)
+            if W._precheck_mailbox_cap(win, names, recs,
+                                       [(0, 0, 0)] * len(recs)):
+                raise RuntimeError("windows (c): the mailbox cap refuses "
+                                   "the deposit")
+            t = time.perf_counter()
+            replies = cl.append_bytes_tagged_many(names, recs, tags)
+            ms["append"] = (time.perf_counter() - t) * 1e3
+            if min(replies) < 0:
+                raise RuntimeError(f"windows (c): append refused {replies}")
+            folds.clear()
+            t = time.perf_counter()
+            win._drain_deposits()
+            drain = (time.perf_counter() - t) * 1e3
+            if len(folds) != 1:
+                raise RuntimeError(f"windows (c): {len(folds)} deposits "
+                                   "drained, not 1")
+            ms["fold"] = folds[0] * 1e3
+            ms["take"] = drain - ms["fold"]
+            slot = win._mail_rows[0][0]
+            t = time.perf_counter()
+            back = fusion.from_host(slot, torch.float32, dev)
+            torch.cuda.synchronize()
+            ms["h2d"] = (time.perf_counter() - t) * 1e3
+            if win.codec is None:
+                ok = torch.equal(back, row)
+            elif win.codec.error_feedback:
+                ok = np.array_equal(slot + win._ef_rows[0], host)
+            else:
+                ok = np.array_equal(slot, win.codec.decode(
+                    win.codec.encode(host), np.float32, n))
+            if not ok:
+                raise RuntimeError(f"windows (c): the {spec} fold is not "
+                                   "its expected row")
+            wire = sum(memoryview(r).nbytes for r in recs)
+            out["codecs"][spec] = dict(ms, wire_bytes=wire,
+                                       raw_bytes=n * 4)
+            del back, payload, recs, host
+            log(f"windows (c) ({card}) {spec}: {wire} wire bytes "
+                f"({wire / (n * 4):.4f} of the row), exact; ms: "
+                + ", ".join(f"{k} {v:.1f}" for k, v in ms.items()))
+        win._finish_deposit = finish
+        bf.win_free("win16h")
+    finally:
+        bf.shutdown()
+        for k in env:
+            del os.environ[k]
+    log(f"windows (c) ({card}): win_create publishes the {row.numel()}-"
+        f"element row (int8 state) in {out['create_ms']:.1f} ms")
+    return out
+
+
+def windows(bf, torch, card: str) -> dict:
+    """Phase 16: the window layer, (a)-(c)."""
+    import gc
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    bf.init()
+    try:
+        a, row = win_collective(bf, torch, dev, card)
+    finally:
+        bf.shutdown()
+    torch.cuda.empty_cache()
+    b = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        label = str(dtype).split(".")[1]
+        r = win_virtual(bf, torch, dev, dtype)
+        gc.collect()
+        torch.cuda.empty_cache()
+        planted = win_virtual(bf, torch, dev, dtype,
+                              fault="slot_off_by_one")["partial_put"]
+        gc.collect()
+        torch.cuda.empty_cache()
+        tol, mass_tol = TOL_WIN[label], TOL_WIN_MASS[label]
+        log(f"windows (b) ({card}) virtual group of {WIN_VN}, rows of "
+            f"{WIN_ROW} {label}: max|err|/max|oracle| partial put "
+            f"{r['partial_put']:.3e}, stacked accumulates "
+            f"{r['stacked_acc']:.3e}, push-sum x{WIN_PS_ROUNDS} "
+            f"{r['pushsum']:.3e} (limit {tol}); sum(p) {r['p_sum']!r}, p "
+            f"err {r['p_err']:.3e}; mass rel err {r['mass_rel']:.3e} "
+            f"(limit {mass_tol}); planted slot_off_by_one {planted:.3e}")
+        worst = max(r["partial_put"], r["stacked_acc"], r["pushsum"])
+        if not (worst <= tol and r["mass_rel"] <= mass_tol
+                and abs(r["p_sum"] - WIN_VN) <= 1e-12
+                and r["p_err"] <= 1e-12):
+            raise RuntimeError(f"windows (b) {label}: {r}")
+        if not planted > tol:
+            raise RuntimeError(f"windows (b) {label}: the planted "
+                               f"slot_off_by_one passed ({planted})")
+        b[label] = dict(r, planted=planted)
+    c = win_hosted_wire(bf, torch, dev, row, card)
+    del row
+    torch.cuda.empty_cache()
+    wall = time.perf_counter() - t0
+    log(f"windows ({card}): phase wall {wall:.1f} s")
+    return {"collective": a, "virtual": b, "hosted": c, "wall_s": wall}
+
+
 def max_abs_errs(fl, torch, dev, B, S, H, D) -> dict:
     """Each kernel's max |kernel - plain| at the main path's shape.
 
@@ -3784,22 +4243,31 @@ def max_abs_errs(fl, torch, dev, B, S, H, D) -> dict:
 
 
 def main() -> int:
+    # the start-up's legs, each timed: a slow start shows which one it was
+    marks = [("", T_IMPORTED)]
     import torch
 
+    marks.append(("torch import", time.perf_counter()))
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    marks.append(("CUDA check", time.perf_counter()))
     sys.path.insert(0, HERE)
     import bluefog_tpu_torch as bf
     from bluefog_tpu_torch.parallel import _build
     from bluefog_tpu_torch.parallel import flash as fl
 
+    marks.append(("package import", time.perf_counter()))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    marks.append(("nvidia-smi", time.perf_counter()))
     card = smi.stdout.strip().splitlines()[0]
     log(f"card: {card}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda}")
+    log("start-up after the script's imports (s): " + ", ".join(
+        f"{name} {t - marks[i - 1][1]:.1f}"
+        for i, (name, t) in enumerate(marks) if i))
 
     t_start = t0 = time.perf_counter()
     # the control plane's library (phase 14) builds with g++ beside nvcc
@@ -3865,6 +4333,8 @@ def main() -> int:
     wire_run = wire(bf, fl, torch, card, obs)
     torch.cuda.empty_cache()
     live = liveness(bf, fl, torch, card, obs, wire_run)
+    torch.cuda.empty_cache()
+    win = windows(bf, torch, card)
 
     kernels = []
     for name, (src, tpu) in KERNELS.items():
@@ -3900,7 +4370,8 @@ def main() -> int:
                    "lm_bench": lm_bench_runs,
                    "moe": moe, "experts": experts, "parallel": par,
                    "vision": vision, "observability": obs,
-                   "wire": wire_run, "liveness": live}, f, indent=1)
+                   "wire": wire_run, "liveness": live, "windows": win},
+                  f, indent=1)
     log(f"wall: {time.perf_counter() - t_start:.1f} s after the card check")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

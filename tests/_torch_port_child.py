@@ -671,7 +671,7 @@ def _optimization(bf, torch, rank: int, world: int, inp) -> dict:
     out["overlap_q_in"] = q
     flags["push_diging"] = _raises(
         NotImplementedError, lambda: ex.push_diging(grad_fn, w_opt, world, 5),
-        "Queue 1, item 6")
+        "Queue 1, item 4")
     out = {k: v.detach().float().numpy() for k, v in out.items()}
     out.update({f"flag:{k}": np.array(v) for k, v in flags.items()})
     return out
@@ -1044,6 +1044,7 @@ def main() -> None:
     import torch
 
     import bluefog_tpu_torch as bf
+    from _torch_port_win_child import win_hosted, win_ops
 
     torch.set_num_threads(1)
     inp = dict(np.load(os.path.join(tmp_dir, "inputs.npz")))
@@ -1058,7 +1059,8 @@ def main() -> None:
            "optimization": _optimization, "tensor": _tensor,
            "pipeline": _pipeline, "timeline": _timeline,
            "wire": _wire, "peer_lost": _peer_lost,
-           "topo_check": _topo_check, "sidecar_epoch": _sidecar_epoch}[mode](
+           "topo_check": _topo_check, "sidecar_epoch": _sidecar_epoch,
+           "win_ops": win_ops, "win_hosted": win_hosted}[mode](
                bf, torch, rank, world, inp)
     bf.barrier()
     bf.shutdown()

@@ -11,7 +11,7 @@ example computes the same thing.
     every rank converges as they require (exact diffusion and gradient
     tracking to 1e-3 of the centralized optimum, diffusion within its
     O(alpha) bias of 0.5); two nonblocking handles in flight;
-    ``push_diging`` raises and names the windows item;
+    ``push_diging`` raises and names the examples' window item;
   * ``make_lr_schedule`` equal to JAX's at every step of 90 epochs;
   * every example through its entry point in one ``torchrun`` world of 4
     (``_torch_port_child.py examples``): ``average_consensus.py``

@@ -1,8 +1,9 @@
 """The port stands alone, and runs on the CPU only when asked to.
 
 A fresh interpreter imports every module of ``bluefog_tpu_torch`` and
-``chip_smoke.py`` and must find neither JAX, flax, optax nor any module of
-the JAX package loaded. On this GPU-less machine the entry points raise
+``chip_smoke.py`` and must find neither JAX, flax, optax, ``ml_dtypes`` nor
+any module of the JAX package loaded (the card's machine has no
+``ml_dtypes``: the port's bf16 and fp8 host rows go through torch). On this GPU-less machine the entry points raise
 unless ``device="cpu"`` is passed. The port's public names are names of
 the JAX package too: it adds no feature the JAX package lacks.
 """
@@ -32,7 +33,7 @@ for m in pkgutil.walk_packages(bluefog_tpu_torch.__path__, "bluefog_tpu_torch.")
     importlib.import_module(m.name)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
-                                    "bluefog_tpu"))
+                                    "ml_dtypes", "bluefog_tpu"))
 assert not bad, bad
 print("clean", len([m for m in sys.modules if m.startswith("bluefog_tpu_torch")]))
 """
@@ -102,6 +103,14 @@ _SLICE_NAMES = [
     # failure detection (Queue 1, item 5(b2))
     "dead_controllers", "suspect_controllers", "dead_ranks",
     "membership_epoch", "shutdown_requested",
+    # the window layer (Queue 1, item 6(b))
+    "win_accumulate", "win_accumulate_nonblocking", "win_associated_p",
+    "win_associated_p_all", "win_create", "win_fence", "win_free", "win_get",
+    "win_get_nonblocking", "win_lock", "win_mutex", "win_poll", "win_put",
+    "win_put_nonblocking", "win_update", "win_update_then_collect",
+    "win_wait", "get_win_version", "turn_on_win_ops_with_associated_p",
+    "turn_off_win_ops_with_associated_p",
+    "unified_mpi_window_model_supported",
 ]
 _PARALLEL_SLICE_NAMES = ["ring_attention", "ring_attention_shard",
                          "ulysses_attention", "ulysses_attention_shard",
@@ -165,17 +174,8 @@ _ABSENT_ON_PURPOSE = {"parallel": {"ep_mesh", "tp_mesh", "pp_mesh",
                               "mesh", "machine_mesh", "rank_sharding",
                               "shard_rank_stacked"}}
 _NOT_YET = {"parallel": set(), "utils": set(),
-            # ROADMAP Queue 1: 6 windows and push-sum, 8 serving
-            "top": {"win_accumulate", "win_accumulate_nonblocking",
-                    "win_associated_p", "win_associated_p_all",
-                    "win_create", "win_fence", "win_free", "win_get",
-                    "win_get_nonblocking", "win_lock", "win_mutex",
-                    "win_poll", "win_put", "win_put_nonblocking",
-                    "win_update", "win_update_then_collect", "win_wait",
-                    "get_win_version", "turn_on_win_ops_with_associated_p",
-                    "turn_off_win_ops_with_associated_p",
-                    "unified_mpi_window_model_supported",
-                    "DistributedWinPutOptimizer",
+            # ROADMAP Queue 1: 6(c) the window optimizers, 8 serving
+            "top": {"DistributedWinPutOptimizer",
                     "DistributedPullGetOptimizer",
                     "DistributedPushSumOptimizer",
                     "ServeClient", "serve_client", "RequestShed"}}
@@ -212,7 +212,7 @@ def test_port_top_level_names_against_jax():
     assert port - jax_names == set()
     assert jax_names - port == _ABSENT_ON_PURPOSE["top"] | _NOT_YET["top"]
     assert len(_ABSENT_ON_PURPOSE["top"]) == 7
-    assert len(_NOT_YET["top"]) == 27
+    assert len(_NOT_YET["top"]) == 6
     for name in ("resnet_from_torch", "vgg_from_torch"):
         assert getattr(bft, name) is getattr(bft.utils, name)
 
