@@ -144,6 +144,9 @@ from .optimizers import (
     DistributedNeighborAllreduceOptimizer,
     DistributedHierarchicalNeighborAllreduceOptimizer,
     DistributedShardedAllreduceOptimizer,
+    DistributedWinPutOptimizer,
+    DistributedPullGetOptimizer,
+    DistributedPushSumOptimizer,
 )
 
 # parameter sync utilities (reference: torch/utility.py) and the

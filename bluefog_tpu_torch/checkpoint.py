@@ -234,7 +234,8 @@ def wait_pending() -> None:
 _OPT_KEY = re.compile(r"optim/state/(\d+)/(.+)$")
 
 
-def restore(path: str, template, strict: bool = False) -> Tuple[object, int]:
+def restore(path: str, template, strict: bool = False, *,
+            collective: bool = True) -> Tuple[object, int]:
     """Load this rank's state from ``path`` into the optimizer wrapper
     ``template`` (its model and optimizer, in place; the optimizer may have
     no state yet); returns ``(template, step)``.
@@ -243,8 +244,11 @@ def restore(path: str, template, strict: bool = False) -> Tuple[object, int]:
     mismatch warns by default and raises with ``strict=True``. The
     optimizer's state comes through host memory and is placed by
     ``load_state_dict`` as ``torch.optim`` places it (by each parameter).
+    ``collective=False`` reads this rank's entries alone, with no other
+    rank taking part (a quarantined rejoiner's fallback: its peers are
+    mid-training).
     """
-    group = _group()
+    group = _group() if collective else None
     wait_pending()  # an in-flight async save may target this very path
     path = os.path.abspath(path)
     _check_meta(path, strict)
@@ -261,7 +265,8 @@ def restore(path: str, template, strict: bool = False) -> Tuple[object, int]:
             sd[key] = torch.empty(item.size, dtype=item.properties.dtype)
         else:
             sd[key] = io.BytesIO()
-    dcp.load(sd, storage_reader=reader, process_group=group)
+    dcp.load(sd, storage_reader=reader, process_group=group,
+             no_dist=not collective)
     state = {}
     for key, val in sd.items():
         hit = _OPT_KEY.search(key) if key.startswith(prefix) else None

@@ -15,8 +15,8 @@ At world 4 on the CPU:
         --batch-size 8 --num-warmup-batches 1 --num-batches-per-iter 2 \\
         --num-iters 2
 
-``--dist-optimizer win_put``, ``push_sum`` and ``pull_get`` run on the
-window optimizers, which the port does not have yet (they raise).
+``--dist-optimizer win_put``, ``pull_get`` and ``push_sum`` run on the
+window optimizers (one-sided gossip through windows).
 """
 
 from __future__ import annotations
@@ -29,7 +29,6 @@ import torch
 
 import bluefog_tpu_torch as bf
 
-WINDOW_KINDS = ("win_put", "push_sum", "pull_get")
 OPTIMIZERS = {
     "neighbor_allreduce": bf.DistributedNeighborAllreduceOptimizer,
     "allreduce": bf.DistributedAllreduceOptimizer,
@@ -37,6 +36,9 @@ OPTIMIZERS = {
     "sharded_allreduce": bf.DistributedShardedAllreduceOptimizer,
     "hierarchical_neighbor_allreduce":
         bf.DistributedHierarchicalNeighborAllreduceOptimizer,
+    "win_put": bf.DistributedWinPutOptimizer,
+    "pull_get": bf.DistributedPullGetOptimizer,
+    "push_sum": bf.DistributedPushSumOptimizer,
     "local": bf.DistributedNeighborAllreduceOptimizer,
 }
 
@@ -52,7 +54,7 @@ def parse_args(argv=None):
     p.add_argument("--num-batches-per-iter", type=int, default=10)
     p.add_argument("--num-iters", type=int, default=10)
     p.add_argument("--dist-optimizer", default="neighbor_allreduce",
-                   choices=[*OPTIMIZERS, *WINDOW_KINDS])
+                   choices=list(OPTIMIZERS))
     p.add_argument("--disable-dynamic-topology", action="store_true",
                    help="use the static topology instead of the one-peer "
                         "dynamic Expo-2 schedule")
@@ -118,11 +120,6 @@ def dynamic_schedule(opt, n: int):
 def main(argv=None) -> float:
     """Runs the benchmark; returns the mean img/sec over the ranks."""
     args = parse_args(argv)
-    if args.dist_optimizer in WINDOW_KINDS:
-        raise NotImplementedError(
-            f"--dist-optimizer {args.dist_optimizer} runs on the window "
-            "optimizers, which the PyTorch port does not have yet: "
-            "ROADMAP.md Queue 1, item 6(c) (the window optimizers)")
     bf.init(device=args.device)
     try:
         return _run(args, torch.device(args.device))
@@ -175,6 +172,10 @@ def _run(args, dev) -> float:
     mean = float(np.mean(img_secs))
     conf = 1.96 * float(np.std(img_secs))
     say(f"Total img/sec on {n} chip(s): {mean:.1f} +-{conf:.1f}")
+    if hasattr(opt, "free"):
+        # a window optimizer's windows go together: a peer's last one-sided
+        # read must not find this rank's row already withdrawn
+        opt.free()
     return mean
 
 

@@ -14,8 +14,7 @@ descent reaches. One process per rank: each holds its own ``X [m, n]``,
 collective of this rank's tensor. Gradient tracking keeps the reference's
 overlap: two nonblocking ``neighbor_allreduce`` calls in flight while the
 new local gradient is computed. Push-DIGing (``push_diging``) runs on the
-one-sided windows (``win_accumulate``); its port is the examples' window
-part, not done yet: it raises and names the roadmap item.
+one-sided windows (``win_accumulate`` and ``win_update_then_collect``).
 
 As in the JAX example, the l2 regularizer is the smooth
 ``0.5 * rho * ||w||^2``.
@@ -173,11 +172,49 @@ def gradient_tracking(grad_fn, w_opt, size: int, n: int, maxite: int = 500,
 
 def push_diging(grad_fn, w_opt, size: int, n: int, maxite: int = 500,
                 alpha: float = 1e-1):
-    """Nedic et al. 2017, Alg. 2, over one-sided windows: it needs
-    ``win_create``/``win_accumulate``/``win_update_then_collect``."""
-    raise NotImplementedError(
-        "push_diging (over win_accumulate) is not ported yet: ROADMAP.md "
-        "Queue 1, item 4 (the examples' window parts)")
+    """Nedic et al. 2017, Alg. 2, over one-sided windows (reference
+    :364-427).
+
+    The iterate u, the tracked gradient y and the push-sum weight v travel
+    as one window tensor ``[2n+1, 1]``. Each round every rank accumulates
+    ``w / (2 * outdegree)`` into its out-neighbours' mailboxes, keeps
+    ``w / 2`` itself (``self_weight=0.5``) and collects. The ops take the
+    window mutexes where they exist (a control plane, or a world of one);
+    without a control plane the collective plane's lockstep rounds need
+    none.
+    """
+    from bluefog_tpu_torch.runtime import control_plane
+
+    me = bf.rank()
+    outs = topology_util.out_neighbor_ranks(bf.load_topology(), me)
+    dst_weights = {dst: 1.0 / (2.0 * len(outs)) for dst in outs}
+    mutex = control_plane.active() or size == 1
+
+    x = _zeros(n, w_opt)
+    grad_prev = grad_fn(x)
+    w = torch.cat([x, grad_prev, torch.ones_like(x[:1])])
+    bf.win_create(w, name="w_buff", zero_init=True)
+    mse = []
+    try:
+        for _ in range(maxite):
+            bf.barrier()
+            w = torch.cat([w[:n] - alpha * w[n:2 * n], w[n:]])
+            bf.win_accumulate(w, name="w_buff", self_weight=0.5,
+                              dst_weights=dst_weights, require_mutex=mutex)
+            bf.barrier()
+            w = bf.win_update_then_collect(name="w_buff",
+                                           require_mutex=mutex)
+            x = w[:n] / w[-1:]
+            grad = grad_fn(x)
+            w = torch.cat([w[:n], w[n:2 * n] + (grad - grad_prev), w[-1:]])
+            grad_prev = grad
+            mse.append(_err(x, w_opt))
+        bf.barrier()
+        w = bf.win_update_then_collect(name="w_buff", require_mutex=mutex)
+        x = w[:n] / w[-1:]
+    finally:
+        bf.win_free("w_buff")
+    return x, mse
 
 
 ALGORITHMS = {

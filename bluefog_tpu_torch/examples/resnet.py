@@ -16,8 +16,8 @@ Run at world 4 on the CPU (one process per rank):
         -m bluefog_tpu_torch.examples.resnet --device cpu --epochs 2 \\
         --batch-size 4 --steps-per-epoch 6 --classes 4
 
-``--dist-optimizer win_put`` runs on a window optimizer, which the port
-does not have yet (it raises).
+``--dist-optimizer win_put`` gossips through windows
+(``DistributedWinPutOptimizer``).
 """
 
 from __future__ import annotations
@@ -36,6 +36,7 @@ OPTIMIZERS = {
     "neighbor_allreduce": bf.DistributedNeighborAllreduceOptimizer,
     "gradient_allreduce": bf.DistributedGradientAllreduceOptimizer,
     "allreduce": bf.DistributedAllreduceOptimizer,
+    "win_put": bf.DistributedWinPutOptimizer,
 }
 
 
@@ -55,7 +56,7 @@ def parse_args(argv=None):
     p.add_argument("--batches-per-allreduce", type=int, default=1,
                    help="local steps per communication round")
     p.add_argument("--dist-optimizer", default="neighbor_allreduce",
-                   choices=[*OPTIMIZERS, "win_put"])
+                   choices=list(OPTIMIZERS))
     p.add_argument("--disable-dynamic-topology", action="store_true")
     p.add_argument("--checkpoint-format", default=None,
                    help="e.g. /tmp/ckpt-{epoch}; enables save per epoch")
@@ -119,11 +120,6 @@ def build(args):
     """``bf.init``, the model and the optimizer wrapper, resumed from
     ``--resume-from`` when given. Returns ``(model, opt, schedule,
     start_epoch)``."""
-    if args.dist_optimizer == "win_put":
-        raise NotImplementedError(
-            "--dist-optimizer win_put runs on a window optimizer, which "
-            "the PyTorch port does not have yet: ROADMAP.md Queue 1, item "
-            "6(c) (the window optimizers)")
     bf.init(device=args.device)
     n = bf.size()
     dev = torch.device(args.device)
@@ -213,6 +209,8 @@ def _loop(args, model, opt, schedule, start_epoch):
         if args.checkpoint_format:
             path = args.checkpoint_format.format(epoch=epoch + 1)
             bf.checkpoint.save(path, opt, step=epoch + 1)
+    if hasattr(opt, "free"):
+        opt.free()  # a window optimizer's windows, freed together
     return history, opt
 
 

@@ -11,18 +11,26 @@ JAX ``fusion.py:98-203``) work on ONE rank's row in numpy, for the
 one-sided paths that move a row between controllers as host bytes (the
 hosted window plane, rejoin state transfer). A ``codec`` of ``ops/codec.py``
 encodes or decodes the row on the way. Host rows of bfloat16 are ``uint16``
-bit patterns (``codec.BF16``). ``assemble_rows`` reads a spec's ``shard``
-table (a ``ShardSpec``-like value: ``factor``, ``pieces``, ``row_len``),
-which the sharded window plane builds.
+bit patterns (``codec.BF16``).
+
+**The shard dimension** (JAX ``fusion.py:205-336``): a spec made with
+``shard=`` (an ``ops.partition.ShardSpec``) also knows how its tensors
+split into ``S`` shards. :func:`pack_shard` copies one shard's pieces into
+a ``[row_len]`` row on the tensors' device, zero-padded to the largest
+shard so one window shape carries every shard in rotation;
+:func:`scatter_shard` writes a combined shard row back into the tensors in
+place (the window optimizers' parameters). The host functions
+``pack_row(shard=)``/``assemble_rows`` read the same piece table.
 """
 
 from __future__ import annotations
 
-from typing import Any, List, NamedTuple, Optional, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from . import partition as _partition
 from .codec import BF16, cast
 
 
@@ -33,11 +41,12 @@ class PackSpec(NamedTuple):
     sizes: Tuple[int, ...]
     total: int
     buffer_dtype: torch.dtype
-    # resolved shard partition (factor, pieces, totals, row_len) or None
-    shard: Optional[Any] = None
+    # resolved shard partition (ops.partition.ShardSpec) or None
+    shard: Optional[_partition.ShardSpec] = None
 
 
-def make_spec(tensors: Sequence[torch.Tensor]) -> PackSpec:
+def make_spec(tensors: Sequence[torch.Tensor],
+              shard: Optional[_partition.ShardSpec] = None) -> PackSpec:
     shapes, dtypes, sizes, offsets = [], [], [], []
     off = 0
     buffer_dtype = None
@@ -50,7 +59,7 @@ def make_spec(tensors: Sequence[torch.Tensor]) -> PackSpec:
         buffer_dtype = t.dtype if buffer_dtype is None else \
             torch.promote_types(buffer_dtype, t.dtype)
     return PackSpec(tuple(shapes), tuple(dtypes), tuple(offsets),
-                    tuple(sizes), off, buffer_dtype or torch.float32)
+                    tuple(sizes), off, buffer_dtype or torch.float32, shard)
 
 
 def pack(tensors: Sequence[torch.Tensor], spec: PackSpec) -> torch.Tensor:
@@ -63,6 +72,43 @@ def unpack(buffer: torch.Tensor, spec: PackSpec) -> List[torch.Tensor]:
     return [buffer[off:off + size].view(shape).to(dtype)
             for shape, dtype, off, size in zip(spec.shapes, spec.dtypes,
                                                spec.offsets, spec.sizes)]
+
+
+def _piece_view(t: torch.Tensor, piece) -> torch.Tensor:
+    """The view of ``t`` one shard piece ``(leaf, axis, a, b)`` selects."""
+    _, ax, a, b = piece
+    return t if ax < 0 else t.narrow(ax, a, b - a)
+
+
+def pack_shard(tensors: Sequence[torch.Tensor], spec: PackSpec,
+               shard: int) -> torch.Tensor:
+    """Shard ``shard``'s pieces of ``tensors`` -> one ``[row_len]`` row of
+    ``spec.buffer_dtype`` on their device, zero past the shard's total."""
+    sh = spec.shard
+    row = torch.empty(sh.row_len, dtype=spec.buffer_dtype,
+                      device=tensors[0].device if tensors else None)
+    off = 0
+    for piece in sh.pieces[shard]:
+        part = _piece_view(tensors[piece[0]], piece)
+        n = part.numel()
+        row[off:off + n].view(part.shape).copy_(part)
+        off += n
+    row[off:].zero_()
+    return row
+
+
+def scatter_shard(tensors: Sequence[torch.Tensor], buf: torch.Tensor,
+                  spec: PackSpec, shard: int) -> None:
+    """Write a combined ``[row_len]`` shard row back into ``tensors`` in
+    place: only shard ``shard``'s pieces change; the pad tail is ignored."""
+    sh = spec.shard
+    off = 0
+    with torch.no_grad():
+        for piece in sh.pieces[shard]:
+            part = _piece_view(tensors[piece[0]], piece)
+            n = part.numel()
+            part.copy_(buf[off:off + n].view(part.shape))
+            off += n
 
 
 def host_dtype(dtype: torch.dtype) -> np.dtype:
@@ -96,14 +142,6 @@ def from_host(arr: np.ndarray, dtype: torch.dtype,
     if device is None or torch.device(device).type == "cpu":
         return t.clone()
     return t.to(device)
-
-
-def _piece_shape(shape: Tuple[int, ...], piece) -> Tuple[int, ...]:
-    """The sub-array shape one shard piece ``(leaf, axis, a, b)`` selects."""
-    _, ax, a, b = piece
-    if ax < 0:
-        return shape
-    return shape[:ax] + (b - a,) + shape[ax + 1:]
 
 
 def unpack_row(row, spec: PackSpec, codec=None) -> List[np.ndarray]:
@@ -177,7 +215,7 @@ def assemble_rows(shard_rows: Sequence[np.ndarray], spec: PackSpec,
         off = 0
         for piece in sh.pieces[s]:
             i, ax, a, b = piece
-            shape = _piece_shape(spec.shapes[i], piece)
+            shape = _partition.piece_shape(spec.shapes[i], piece)
             size = int(np.prod(shape)) if shape else 1
             part = cast(row[off:off + size].reshape(shape),
                         host_dtype(spec.dtypes[i]))

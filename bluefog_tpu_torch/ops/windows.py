@@ -1479,6 +1479,22 @@ def _row_weights(weights: Optional[Weights], me: int,
     return {p: w for p, w in weights.items() if p in mine}
 
 
+def _edge_weights(weights: Optional[Weights],
+                  neighbors: Dict[int, List[int]], default: float,
+                  what: str, size: int) -> Dict[int, Dict[int, float]]:
+    """Every rank's row of :func:`_row_weights`: the JAX package's global
+    ``{rank: {peer: w}}`` table, which the window optimizers' healing
+    tables are built in."""
+    return {r: _row_weights(weights, r, neighbors, default, what)
+            for r in range(size)}
+
+
+def _mutex_available(win: Window) -> bool:
+    """Whether the window's rank mutexes exist: on the control plane, or in
+    a process holding every rank (a world of one)."""
+    return not (isinstance(win.host, _LocalWinHost) and win.size > 1)
+
+
 def _self_weight(value, me: int, size: int) -> float:
     """A scalar, or a per-rank ``{rank: w}`` read at this rank."""
     if isinstance(value, dict):
@@ -1514,7 +1530,7 @@ def _release_all(win: Window, ranks) -> None:
 def _check_mutex_world(win: Window, what: str) -> None:
     """A mutex across processes lives on the control plane: without one at
     a world of more than one there is none to take."""
-    if isinstance(win.host, _LocalWinHost) and win.size > 1:
+    if not _mutex_available(win):
         raise RuntimeError(
             f"{what}: window mutexes across processes live on the control "
             "plane, and none is attached; attach one (a torchrun world, or "

@@ -199,6 +199,68 @@ KNOBS: Tuple[Knob, ...] = (
          "hosted-window deposit chunk size in BYTES (the reference counted "
          "elements); values below 64 KiB are clamped to it with a warning",
          "BLUEFOG_MAX_WIN_SENT_LENGTH"),
+    # -- the window optimizers (optimizers.py, ops/partition.py) -------------
+    Knob("BFT_FUSION_THRESHOLD", "int", 8 * 1024 * 1024,
+         "bytes; above 0 a window optimizer packs every parameter into ONE "
+         "window (one put+update pair per gossip step); at 0 or below it "
+         "keeps one window per parameter (dtype-true wire)",
+         "BLUEFOG_FUSION_THRESHOLD"),
+    Knob("BFT_WIN_SHARD", "int", 1,
+         "shard factor S of the window optimizers' gossip row: the row is "
+         "one shard of the parameters (the partition rules cut each one's "
+         "chosen axis into S pieces) and the active shard rotates each "
+         "gossip step, so wire bytes, mailbox slots and published rows "
+         "shrink by ~S. Needs the fused window (`BFT_FUSION_THRESHOLD` > "
+         "0); `1` keeps the unsharded plane", "BLUEFOG_WIN_SHARD"),
+    Knob("BFT_WIN_SHARD_RULES", "str", None,
+         "ordered partition rules of the sharded windows: comma-separated "
+         "`regex=axis` terms matched against the `.`-joined parameter names "
+         "of `named_parameters()` (first match wins; axis an integer, "
+         "`largest` or `none`); unset = shard every eligible parameter's "
+         "largest axis", "BLUEFOG_WIN_SHARD_RULES"),
+    Knob("BFT_WIN_SHARD_FLOOR_KB", "float", 0.0,
+         "size floor (KB) below which the partition rules never cut a "
+         "parameter: it stays whole on the lightest shard; `0` disables it",
+         "BLUEFOG_WIN_SHARD_FLOOR_KB"),
+    Knob("BFT_CHECKPOINT_DIR", "path", None,
+         "directory of checkpoint directories; a quarantined rejoiner that "
+         "no live in-neighbour serves restores the newest one "
+         "(`checkpoint.latest_path`)", "BLUEFOG_CHECKPOINT_DIR"),
+    Knob("BFT_CP_QUARANTINE_TIMEOUT", "float", 120.0,
+         "seconds a quarantined rejoiner waits for a neighbour's state "
+         "transfer (the push-sum mass split included) before it falls back "
+         "to the newest checkpoint under `BFT_CHECKPOINT_DIR`, then to "
+         "fresh parameters", "BLUEFOG_CP_QUARANTINE_TIMEOUT"),
+    # -- the serving plane's snapshot publisher (serving/snapshot.py) --------
+    Knob("BFT_SERVE_PUBLISH_EVERY", "int", 0,
+         "every N-th communicating window-optimizer step, controller 0 "
+         "publishes the post-gossip parameters as a versioned immutable "
+         "snapshot (`bf.serve.snap.<ver>.<shard>` behind the `bf.serve.ver` "
+         "fence); `0` never publishes", "BLUEFOG_SERVE_PUBLISH_EVERY"),
+    Knob("BFT_SERVE_SHARDS", "int", 0,
+         "snapshot pull units: the flat f32 parameter vector is cut into S "
+         "contiguous segments under keys of their own; `0` follows "
+         "`BFT_WIN_SHARD`", "BLUEFOG_SERVE_SHARDS"),
+    Knob("BFT_SERVE_KEEP", "int", 2,
+         "committed snapshot versions kept before the publisher overwrites "
+         "the oldest with empty bytes (`bf.serve.gc_floor` names the "
+         "oldest kept)", "BLUEFOG_SERVE_KEEP"),
+    Knob("BFT_SERVE_CODEC", "str", None,
+         "snapshot codec (`none`/`int8`/`fp8`); unset follows the window "
+         "codec through its state codec (top-k falls back to int8)",
+         "BLUEFOG_SERVE_CODEC"),
+    Knob("BFT_SERVE_CLIENT_TTL_S", "float", 30.0,
+         "seconds after which a serve client's heartbeat slot counts as "
+         "free for the next client to claim; `0` never reuses a slot",
+         "BLUEFOG_SERVE_CLIENT_TTL_S"),
+    Knob("BFT_SERVE_POLL_S", "float", 0.5,
+         "serve-client poll interval (s); the status readers count a "
+         "client live within 6x of it", "BLUEFOG_SERVE_POLL_S"),
+    Knob("BFT_TRACE_SERVE", "bool", False,
+         "`1`: each snapshot publish stamps a `bf.serve.lineage.<ver>` "
+         "record and records its span and per-shard flow starts in the "
+         "flight ring; `0` adds nothing to the wire or the ring",
+         "BLUEFOG_TRACE_SERVE"),
     # -- failure detection (runtime/heartbeat.py, watchdog.py, handles.py,
     #    ops/neighbors.py) ---------------------------------------------------
     Knob("BFT_HEARTBEAT_INTERVAL", "float", 5.0,

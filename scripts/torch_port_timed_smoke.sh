@@ -26,7 +26,7 @@ for i in $(seq 1 "$runs"); do
   rc=${PIPESTATUS[0]}
   echo "$(date +%T.%N) END run $i rc=$rc"
   cp chiprun_out/chip_smoke.json "$out/chip_smoke_$i.json" 2>/dev/null
-  grep -E "card:|start-up|build:|phase wall|obs wall|wall:|windows \(" \
+  grep -E "card:|start-up|build:|phase wall|obs wall|wall:|windows \(|window optimizers \([cd]\)" \
     "$out/timed_$i.log" | cut -c1-600
   tail -1 "$out/timed_$i.log" | cut -c1-200
   [ "$rc" -eq 0 ] || exit "$rc"

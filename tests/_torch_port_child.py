@@ -635,7 +635,8 @@ def _optimization(bf, torch, rank: int, world: int, inp) -> dict:
     """``examples/optimization.py``'s algorithms on this rank's ``X``, ``y``
     over the ring: every method after ``cmp_steps`` steps (DGD's iterate
     as their ``w_opt``), then the convergence runs at the JAX tests'
-    budgets, the two nonblocking handles in flight, and ``push_diging``."""
+    budgets, the two nonblocking handles in flight, and ``push_diging``
+    (over windows, 400 iterations)."""
     from bluefog_tpu_torch.examples import optimization as ex
 
     ex.set_example_topology("ring")
@@ -669,9 +670,12 @@ def _optimization(bf, torch, rank: int, world: int, inp) -> dict:
     out["overlap_w"], out["overlap_q"] = bf.synchronize(h1), \
         bf.synchronize(h2)
     out["overlap_q_in"] = q
-    flags["push_diging"] = _raises(
-        NotImplementedError, lambda: ex.push_diging(grad_fn, w_opt, world, 5),
-        "Queue 1, item 4")
+    out["cmp_push_diging"], _ = ex.push_diging(grad_fn, out["cmp_dgd"],
+                                               world, 5, maxite=k,
+                                               alpha=0.05)
+    out["conv_push_diging"], mse = ex.push_diging(grad_fn, w_opt, world, 5,
+                                                  maxite=400, alpha=0.05)
+    out["mse_push_diging"] = torch.tensor(mse)
     out = {k: v.detach().float().numpy() for k, v in out.items()}
     out.update({f"flag:{k}": np.array(v) for k, v in flags.items()})
     return out
@@ -1021,6 +1025,11 @@ def _examples(tmp_dir: str) -> None:
     benchmark.main(cpu + ["--model", "mlp", "--batch-size", "8",
                           "--num-warmup-batches", "1",
                           "--num-batches-per-iter", "2", "--num-iters", "2"])
+    for kind in ("win_put", "pull_get", "push_sum"):
+        benchmark.main(cpu + ["--model", "mlp", "--batch-size", "8",
+                              "--num-warmup-batches", "1",
+                              "--num-batches-per-iter", "2",
+                              "--num-iters", "2", "--dist-optimizer", kind])
     mnist.main(cpu + ["--epochs", "1", "--samples-per-rank", "256"])
     optimization.main(cpu + ["--method", "gradient_tracking", "--task",
                              "linear_regression", "--max-iter", "200"])
@@ -1032,6 +1041,10 @@ def _examples(tmp_dir: str) -> None:
     resnet.train(resnet.parse_args(common + ["--epochs", "2"]))
     resnet.train(resnet.parse_args(common + [
         "--epochs", "3", "--resume-from", os.path.join(tmp_dir, "ck-2")]))
+    resnet.train(resnet.parse_args(cpu + [
+        "--batch-size", "4", "--val-batch-size", "4", "--base-lr", "0.004",
+        "--warmup-epochs", "2", "--steps-per-epoch", "6", "--classes", "4",
+        "--epochs", "1", "--dist-optimizer", "win_put"]))
     dist.destroy_process_group()
 
 
@@ -1045,6 +1058,8 @@ def main() -> None:
 
     import bluefog_tpu_torch as bf
     from _torch_port_win_child import win_hosted, win_ops
+    from _torch_port_winopt_child import (winopt_coll, winopt_hosted,
+                                          winopt_kill)
 
     torch.set_num_threads(1)
     inp = dict(np.load(os.path.join(tmp_dir, "inputs.npz")))
@@ -1060,7 +1075,9 @@ def main() -> None:
            "pipeline": _pipeline, "timeline": _timeline,
            "wire": _wire, "peer_lost": _peer_lost,
            "topo_check": _topo_check, "sidecar_epoch": _sidecar_epoch,
-           "win_ops": win_ops, "win_hosted": win_hosted}[mode](
+           "win_ops": win_ops, "win_hosted": win_hosted,
+           "winopt_coll": winopt_coll, "winopt_hosted": winopt_hosted,
+           "winopt_kill": winopt_kill}[mode](
                bf, torch, rank, world, inp)
     bf.barrier()
     bf.shutdown()

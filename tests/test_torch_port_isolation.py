@@ -111,6 +111,9 @@ _SLICE_NAMES = [
     "win_wait", "get_win_version", "turn_on_win_ops_with_associated_p",
     "turn_off_win_ops_with_associated_p",
     "unified_mpi_window_model_supported",
+    # the window optimizers (Queue 1, item 6(c))
+    "DistributedWinPutOptimizer", "DistributedPullGetOptimizer",
+    "DistributedPushSumOptimizer",
 ]
 _PARALLEL_SLICE_NAMES = ["ring_attention", "ring_attention_shard",
                          "ulysses_attention", "ulysses_attention_shard",
@@ -174,11 +177,8 @@ _ABSENT_ON_PURPOSE = {"parallel": {"ep_mesh", "tp_mesh", "pp_mesh",
                               "mesh", "machine_mesh", "rank_sharding",
                               "shard_rank_stacked"}}
 _NOT_YET = {"parallel": set(), "utils": set(),
-            # ROADMAP Queue 1: 6(c) the window optimizers, 8 serving
-            "top": {"DistributedWinPutOptimizer",
-                    "DistributedPullGetOptimizer",
-                    "DistributedPushSumOptimizer",
-                    "ServeClient", "serve_client", "RequestShed"}}
+            # ROADMAP Queue 1, item 8: the serve client
+            "top": {"ServeClient", "serve_client", "RequestShed"}}
 
 
 def _init_names(path: str) -> set:
@@ -212,7 +212,7 @@ def test_port_top_level_names_against_jax():
     assert port - jax_names == set()
     assert jax_names - port == _ABSENT_ON_PURPOSE["top"] | _NOT_YET["top"]
     assert len(_ABSENT_ON_PURPOSE["top"]) == 7
-    assert len(_NOT_YET["top"]) == 6
+    assert len(_NOT_YET["top"]) == 3
     for name in ("resnet_from_torch", "vgg_from_torch"):
         assert getattr(bft, name) is getattr(bft.utils, name)
 
