@@ -158,3 +158,7 @@ from .utils import (broadcast_parameters, allreduce_parameters,
 from . import checkpoint
 from . import models
 from . import parallel
+
+# serving plane: versioned snapshots and batched read-only inference over
+# the control-plane wire; ``bf.serve_client()`` attaches from inside a job
+from .serving import RequestShed, ServeClient, serve_client

@@ -259,8 +259,29 @@ KNOBS: Tuple[Knob, ...] = (
     Knob("BFT_TRACE_SERVE", "bool", False,
          "`1`: each snapshot publish stamps a `bf.serve.lineage.<ver>` "
          "record and records its span and per-shard flow starts in the "
-         "flight ring; `0` adds nothing to the wire or the ring",
+         "flight ring, and a serve client traces every request (admit, "
+         "queue, linger, decode spans under one trace id) and its pulls; "
+         "`0` adds nothing to the wire or the ring",
          "BLUEFOG_TRACE_SERVE"),
+    # -- the serve client (serving/client.py) --------------------------------
+    Knob("BFT_SERVE_BATCH", "int", 8,
+         "most requests a serve client stacks into one `model_fn` call",
+         "BLUEFOG_SERVE_BATCH"),
+    Knob("BFT_SERVE_BATCH_WAIT_MS", "float", 5.0,
+         "ms the batcher lingers after a batch's first request for more "
+         "before it runs a partial batch", "BLUEFOG_SERVE_BATCH_WAIT_MS"),
+    Knob("BFT_SERVE_QUEUE_MAX", "int", 256,
+         "serve-client queue capacity: at this depth the admission gate "
+         "sheds (`RequestShed`, gate `queue_full`)",
+         "BLUEFOG_SERVE_QUEUE_MAX"),
+    Knob("BFT_SERVE_QUEUE_SOFT", "int", 0,
+         "queue depth from which admitted requests count as `queued` "
+         "(degraded) rather than `accepted`; `0` is half of "
+         "`BFT_SERVE_QUEUE_MAX`", "BLUEFOG_SERVE_QUEUE_SOFT"),
+    Knob("BFT_SERVE_STALE_S", "float", 30.0,
+         "publish lag (s) beyond which the admission gate degrades to "
+         "`queue` and `--status --strict` reports a stale snapshot",
+         "BLUEFOG_SERVE_STALE_S"),
     # -- failure detection (runtime/heartbeat.py, watchdog.py, handles.py,
     #    ops/neighbors.py) ---------------------------------------------------
     Knob("BFT_HEARTBEAT_INTERVAL", "float", 5.0,

@@ -628,6 +628,158 @@ def step_report() -> Optional[dict]:
     return analyze_dump(recorder().snapshot())
 
 
+# -- serve request-path attribution ------------------------------------------
+
+# Span names a serve client records when BFT_TRACE_SERVE is on. The
+# request-scoped spans carry the 63-bit trace id in the ``b`` column, so
+# concurrent requests interleave in the ring and still match up.
+SERVE_PHASES = ("admit", "queue", "swap_blocked", "linger", "decode",
+                "reply")
+_SERVE_PHASE_SPANS = {
+    "serve.admit": "admit",
+    "serve.queue": "queue",
+    "serve.linger": "linger",
+    "serve.decode": "decode",
+}
+
+
+def _pctile(sorted_vals, q: float) -> float:
+    """Nearest-rank percentile over an ascending list (0 when empty)."""
+    if not sorted_vals:
+        return 0.0
+    i = min(len(sorted_vals) - 1,
+            max(0, int(round(q / 100.0 * len(sorted_vals))) - 1))
+    return float(sorted_vals[i])
+
+
+def analyze_serve(doc: dict) -> Optional[dict]:
+    """Per-request attribution over one dump: every complete ``serve.req``
+    trace in the ring split into disjoint phase buckets (admit, queue,
+    swap_blocked, linger, decode, reply), with p50/p99 per phase and per
+    pull endpoint. None when the ring holds no complete request trace.
+
+    ``swap_blocked`` is the overlap of a trace's queue wait with the
+    poller's ``serve.pull`` spans, carved out of ``queue``; ``reply`` is
+    the tail from the decode's end to the request span's end. The
+    ``serve.req`` end event's ``a`` column is the snapshot version that
+    answered.
+    """
+    names = doc.get("names", [])
+    ev = doc.get("events", {})
+    rows = [(k, names[n] if 0 <= n < len(names) else "?", t, a, b)
+            for k, n, t, a, b in zip(ev.get("kind", []), ev.get("name", []),
+                                     ev.get("t_wall_us", []),
+                                     ev.get("a", []), ev.get("b", []))]
+    req_b: Dict[int, float] = {}
+    req_e: Dict[int, tuple] = {}
+    phase_open: Dict[tuple, float] = {}
+    phase_iv: Dict[int, Dict[str, list]] = {}
+    pulls: list = []
+    pull_open: list = []
+    ep_open: Dict[int, list] = {}
+    ep_spans: Dict[int, list] = {}
+    failovers = 0
+    for k, name, t, a, b in rows:
+        if name == "serve.req":
+            if k == SPAN_B:
+                req_b[int(b)] = t
+            elif k == SPAN_E:
+                req_e[int(b)] = (t, a)
+        elif name in _SERVE_PHASE_SPANS:
+            key = (name, int(b))
+            if k == SPAN_B:
+                phase_open[key] = t
+            elif k == SPAN_E and key in phase_open:
+                iv = phase_iv.setdefault(int(b), {})
+                iv.setdefault(_SERVE_PHASE_SPANS[name], []).append(
+                    (phase_open.pop(key), t))
+        elif name == "serve.pull":
+            if k == SPAN_B:
+                pull_open.append(t)
+            elif k == SPAN_E and pull_open:
+                pulls.append((pull_open.pop(), t))
+        elif name == "serve.pull.ep":
+            if k == SPAN_B:
+                ep_open.setdefault(int(b), []).append(t)
+            elif k == SPAN_E and ep_open.get(int(b)):
+                ep_spans.setdefault(int(b), []).append(
+                    (ep_open[int(b)].pop(), t, a))
+        elif name == "serve.failover" and k == SPAN_E:
+            failovers += 1
+    traces = []
+    for tid, t0 in req_b.items():
+        if tid not in req_e:
+            continue
+        t1, ver = req_e[tid]
+        if t1 <= t0:
+            continue
+        iv = phase_iv.get(tid, {})
+        ph = {p: 0.0 for p in SERVE_PHASES}
+        for p, lst in iv.items():
+            ph[p] = sum(hi - lo for lo, hi in lst)
+        blocked = _overlap(iv.get("queue", []), pulls)
+        ph["swap_blocked"] = blocked
+        ph["queue"] = max(0.0, ph["queue"] - blocked)
+        dec = iv.get("decode")
+        if dec:
+            ph["reply"] = max(0.0, t1 - max(hi for _, hi in dec))
+        dur = t1 - t0
+        traces.append({"tid": int(tid), "t_us": t1, "dur_us": dur,
+                       "ver": int(ver), "phases": ph,
+                       "coverage": sum(ph.values()) / dur if dur else 0.0})
+    if not traces:
+        return None
+    traces.sort(key=lambda r: r["t_us"])
+    durs = sorted(r["dur_us"] for r in traces)
+    phases = {}
+    for p in SERVE_PHASES:
+        vals = sorted(r["phases"][p] for r in traces)
+        phases[p] = {"p50_us": _pctile(vals, 50), "p99_us": _pctile(vals, 99),
+                     "mean_us": sum(vals) / len(vals)}
+    endpoints = {}
+    for ep, lst in sorted(ep_spans.items()):
+        pvals = sorted(hi - lo for lo, hi, _ in lst)
+        endpoints[str(ep)] = {
+            "pulls": len(lst),
+            "bytes": sum(x for _, _, x in lst),
+            "p50_us": _pctile(pvals, 50),
+            "p99_us": _pctile(pvals, 99),
+        }
+    return {
+        "requests": len(traces),
+        "p50_us": _pctile(durs, 50),
+        "p99_us": _pctile(durs, 99),
+        "phases": phases,
+        "endpoints": endpoints,
+        "pulls": len(pulls),
+        "failovers": failovers,
+        "traces": traces,
+    }
+
+
+def serve_report() -> Optional[dict]:
+    """Per-request attribution of the live ring (no dump file needed).
+    None until at least one traced request completed."""
+    return analyze_serve(recorder().snapshot())
+
+
+def format_serve_report(rep: dict) -> str:
+    lines = [f"{rep['requests']} traced requests: "
+             f"p50 {rep['p50_us'] / 1e3:.3f} ms, "
+             f"p99 {rep['p99_us'] / 1e3:.3f} ms "
+             f"({rep['pulls']} snapshot pulls, "
+             f"{rep['failovers']} failovers)"]
+    for p in SERVE_PHASES:
+        st = rep["phases"][p]
+        lines.append(f"  {p:<13} p50 {st['p50_us'] / 1e3:9.3f} ms   "
+                     f"p99 {st['p99_us'] / 1e3:9.3f} ms")
+    for ep, st in rep["endpoints"].items():
+        lines.append(f"  endpoint {ep}: {st['pulls']} pulls, "
+                     f"{st['bytes'] / 1e6:.2f} MB, "
+                     f"pull p99 {st['p99_us'] / 1e3:.3f} ms")
+    return "\n".join(lines)
+
+
 def format_report(rep: dict) -> str:
     lines = [f"step {rep['step']}: {rep['step_sec'] * 1e3:.2f} ms "
              f"(gossip {rep['gossip_sec'] * 1e3:.2f} ms, attribution "

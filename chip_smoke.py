@@ -244,6 +244,44 @@ Phases (each raises on failure; the script then exits non-zero):
    (e) ``benchmark.py`` with ``win_put``, ``pull_get`` and ``push_sum``
    and an epoch of ``resnet.py --dist-optimizer win_put`` at world 1. The
    phase raises when it leaves more than 1 MiB allocated on the card.
+18. serving, train-while-serve on the main path: (0) K1 at the serve
+   batch (B=SERVE_BATCH, H=16, D=128, S=8192, causal) against its plain
+   version one sequence at a time, each sequence's rows equal to a launch
+   on it alone bit for bit, its ms beside its bound. Then ``bf.init()`` on
+   a loopback control plane of one (``BFT_SERVE_PUBLISH_EVERY=1``,
+   ``BFT_SERVE_SHARDS=8``, ``BFT_TRACE_SERVE=1``, ``BFT_SLO``): the
+   headline LM under ``DistributedWinPutOptimizer`` around Adam 1e-3 as the
+   trainer, and a ``ServeClient`` in this process on the card whose
+   ``model_fn`` runs the same architecture over the snapshot's leaves
+   (``torch.func.functional_call`` on a skeleton on the meta device, by
+   ``named_parameters()`` in the publisher's leaf order) and answers each
+   8192-token request with its last position's f32 logits, every batch
+   padded to SERVE_BATCH rows. Every step must advance ``serve.publishes``.
+   (a) SERVE_STEPS lockstep steps: ``refresh()`` to the step's version,
+   then SERVE_BATCH requests equal a direct forward of the trainer's own
+   parameters over the same stacked batch bit for bit, with ``LAYERS``
+   K1 launches per served batch and no K2/K3 (the counts set to 0 just
+   before, read just after); SERVE_IDLE_S of SERVE_SUBMITTERS submitter
+   threads with the trainer idle, then SERVE_LOAD_STEPS steps while they
+   keep requests flowing: every answer equals one saved version's answer
+   for its sequence (none torn); requests/s and p50/p99 latency of both;
+   the trainer's ms/step publishing alone and with the client serving
+   beside phase 17(a)'s win-put; each version's pull s and MB/s, the
+   swap's H2D ms; the served function's decode ms at batch 1 and
+   SERVE_BATCH (CUDA events). (c) ``flight.serve_report()`` over the ring:
+   the traced requests counted, the median phase coverage in [0.9, 1.1],
+   ``decode`` the largest phase, the p50/p99 gauges set, the lineage of the
+   serving version naming its step. (d) ``python -m
+   bluefog_tpu_torch.launcher`` as subprocesses against the job: ``--serve
+   --once --device cuda`` (its swap line), ``--status`` (the serving-plane
+   lines, a client heartbeating), ``--top --once`` and ``--dump`` (rank
+   0's ring); (e) at the same time ``examples/serving.py`` on the card
+   (``SERVING OK``). Two planted faulty swaps (SERVE_FAULTS: the reference
+   published before its copy lands, one leaf slice corrupted) must each
+   show as answers that match no version. (b) With
+   ``BFT_SERVE_QUEUE_MAX=2`` and a model that waits on an event (a control
+   plane of its own): a flood sheds with gate ``queue_full`` and
+   ``stats()['shed']`` equals the shed count. Peak memory.
 
 The line before the last is the ``kernels`` JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -589,6 +627,28 @@ LIVE_SLEEP_S = 9.0
 LIVE_SYNC_PROBE_S = 0.5
 LIVE_GRACE_S = 5.0
 LIVE_WAIT_S = 20.0
+
+# Phase 18, serving: the trainer (controller 0 of a loopback control plane
+# of one) publishes a snapshot every step in SERVE_SHARDS pull units (the
+# 1.34 GB f32 vector is one blob above the server's 1 GiB message ceiling
+# otherwise, and every publish would fail); a ServeClient in this process
+# answers SERVE_SEQ-token requests with the last position's f32 logits.
+# The served function pads every batch to SERVE_BATCH rows, so an answer's
+# bits depend on its own sequence and its version's weights only: lockstep
+# answers must equal a direct forward bit for bit, and every answer under
+# load must equal one version's answer for its sequence (no tolerance).
+SERVE_BATCH = 4
+SERVE_SHARDS = 8
+SERVE_STEPS = 3           # lockstep steps, each checked before the next
+SERVE_LOAD_STEPS = 3      # steps trained while submitters keep requests in
+SERVE_POOL = 8            # distinct request sequences (seed 18)
+SERVE_SUBMITTERS = 4
+SERVE_IDLE_S = 3.0
+SERVE_POLL_S = 0.2
+SERVE_WAIT_S = 120.0
+SERVE_SLO = "serve_p99:10s@5m,serve_avail:99@5m"
+SERVE_FAULTS = ("publish_before_copy", "corrupt_leaf_slice")
+SERVE_CLI_TIMEOUT = 180.0
 
 KERNELS = {
     "flash_fwd": ("bluefog_tpu_torch/parallel/csrc/flash_fwd.cu",
@@ -4586,6 +4646,583 @@ def window_optimizers(bf, fl, torch, card: str, train_run: dict) -> dict:
     return res
 
 
+def serve_k1_check(fl, torch, dev) -> dict:
+    """18(0): K1 at the serve batch (B=SERVE_BATCH, H=16, D=128, S=SEQ,
+    causal) against its plain version one sequence at a time (the dense
+    scores of the whole batch would take ~70 GB); each sequence's rows of
+    the batched launch must equal a launch on that sequence alone bit for
+    bit. Also K1's ms at this shape beside its bound."""
+    B, S, H, D = SERVE_BATCH, SEQ, 16, 128
+    gen = torch.Generator(device=dev).manual_seed(18)
+    q, k, v = (torch.randn((B, S, H, D), generator=gen, device=dev)
+               .to(torch.bfloat16) for _ in range(3))
+    o, m, l = fl.flash_block(q, k, v, 0, 0, causal=True)
+    errs = {"o": 0.0, "m": 0.0, "l": 0.0}
+    alone = True
+    for b in range(B):
+        sl = slice(b, b + 1)
+        qb, kb, vb = (t[sl].contiguous() for t in (q, k, v))
+        po, pm, pl = fl.flash_block_plain(qb, kb, vb, 0, 0, causal=True)
+        errs["o"] = max(errs["o"], float(
+            ((o[sl] - po) / pl.clamp_min(1.0)[..., None]).abs().max()))
+        errs["m"] = max(errs["m"], float((m[sl] - pm).abs().max()))
+        errs["l"] = max(errs["l"], float(
+            ((l[sl] - pl).abs() / pl.clamp_min(1.0)).max()))
+        del po, pm, pl
+        one = fl.flash_block(qb, kb, vb, 0, 0, causal=True)
+        alone = alone and all(torch.equal(x[sl], y)
+                              for x, y in zip((o, m, l), one))
+    finite = all(bool(torch.isfinite(t).all()) for t in (o, m, l))
+    del o, m, l
+    ms = cuda_ms(lambda: fl.flash_block(q, k, v, 0, 0, causal=True), 5)
+    bound = kernel_bounds(B, S, H, D)["flash_fwd"]
+    log(f"serving (0) K1 at B={B} S={S} H={H} D={D} causal against its "
+        f"plain version: " + " ".join(f"{n}={e:.3e}" for n, e in errs.items())
+        + f" (limits o {TOL_FWD}, m {TOL_M}, l {TOL_L}); each sequence "
+        f"equal to its own launch bit for bit {alone}; ms={ms:.4f} "
+        f"bound_ms={bound['bound_ms']:.4f} ({bound['bound_by']})")
+    limits = {"o": TOL_FWD, "m": TOL_M, "l": TOL_L}
+    bad = {n: e for n, e in errs.items() if not e <= limits[n]}
+    if bad or not alone or not finite:
+        raise RuntimeError(f"serving (0): K1 at B={B} disagrees with its "
+                           f"plain version: {bad}, alone {alone}, finite "
+                           f"{finite}")
+    return {"errs": errs, "alone_bit_equal": alone, "ms": ms, **bound}
+
+
+def _digest(row) -> str:
+    import hashlib
+
+    return hashlib.sha1(np.ascontiguousarray(row).tobytes()).hexdigest()
+
+
+def _serve_forward(torch, skeleton, names):
+    """The served function: the LM's last-position f32 logits for a batch
+    of token rows, over ``params`` (the snapshot's leaves in the
+    publisher's order, bound to ``names``) on ``skeleton``'s structure."""
+    from torch.func import functional_call
+
+    def forward(params, xs):
+        return functional_call(skeleton, dict(zip(names, params)),
+                               (xs,))[:, -1]
+    return forward
+
+
+def _padded(torch, forward, rows: int):
+    """``forward`` on a batch padded with zero rows to ``rows``: one served
+    shape, so a row's answer is the same bits in any batch."""
+    def model_fn(params, xs):
+        n = xs.shape[0]
+        if n < rows:
+            xs = torch.cat([xs, xs.new_zeros((rows - n,) + tuple(
+                xs.shape[1:]))])
+        return forward(params, xs)[:n]
+    return model_fn
+
+
+class _Load:
+    """SERVE_SUBMITTERS threads that keep requests in flight (each waits
+    for its answer, then submits the next, a pool sequence drawn from its
+    own seeded generator) until stopped: latencies, and the digest of every
+    answer by its pool index."""
+
+    def __init__(self, sc, pool) -> None:
+        import threading
+
+        self.sc, self.pool = sc, pool
+        self.stop = threading.Event()
+        self.mu = threading.Lock()
+        self.lat, self.seen, self.errors = [], {}, []
+        self.threads = [threading.Thread(target=self._run, args=(i,),
+                                         daemon=True)
+                        for i in range(SERVE_SUBMITTERS)]
+        self.t0 = time.perf_counter()
+        for t in self.threads:
+            t.start()
+
+    def _run(self, i: int) -> None:
+        rng = np.random.default_rng(100 + i)
+        while not self.stop.is_set():
+            j = int(rng.integers(len(self.pool)))
+            t0 = time.perf_counter()
+            try:
+                y = self.sc.infer(self.pool[j], timeout=SERVE_WAIT_S)
+            except Exception as e:  # noqa: BLE001 — reported by finish()
+                with self.mu:
+                    self.errors.append(repr(e))
+                return
+            dt = time.perf_counter() - t0
+            key = (j, _digest(y))
+            with self.mu:
+                self.lat.append(dt)
+                self.seen[key] = self.seen.get(key, 0) + 1
+
+    def finish(self, label: str) -> dict:
+        self.stop.set()
+        for t in self.threads:
+            t.join(SERVE_WAIT_S)
+        wall = time.perf_counter() - self.t0
+        if self.errors or any(t.is_alive() for t in self.threads):
+            raise RuntimeError(f"serving {label}: a submitter failed: "
+                               f"{self.errors}")
+        lat = sorted(self.lat)
+        n = len(lat)
+        if not n:
+            raise RuntimeError(f"serving {label}: no request completed")
+        return {"requests": n, "wall_s": wall, "req_per_s": n / wall,
+                "p50_ms": lat[n // 2] * 1e3,
+                "p99_ms": lat[min(n - 1, int(0.99 * n))] * 1e3,
+                "max_ms": lat[-1] * 1e3, "seen": self.seen}
+
+
+def _served_batch(fl, torch, sc, reqs) -> tuple:
+    """Submit ``reqs`` at once; their answers and the launch counts of the
+    batches that served them (set to 0 just before, read just after)."""
+    b0 = sc.stats()["batches"]
+    fl.reset_launch_counts()
+    futs = [sc.submit(r) for r in reqs]
+    answers = [f.result(SERVE_WAIT_S) for f in futs]
+    counts = dict(fl.launch_counts)
+    return answers, counts, sc.stats()["batches"] - b0
+
+
+def _refs(torch, forward, versions: dict, pool, dev) -> dict:
+    """{version: {(pool index, digest)}}: each saved version's answer to
+    every pool sequence, SERVE_BATCH sequences a forward."""
+    out = {}
+    with torch.inference_mode():
+        for v, params in versions.items():
+            out[v] = set()
+            for i in range(0, len(pool), SERVE_BATCH):
+                xs = torch.from_numpy(pool[i:i + SERVE_BATCH]).to(dev)
+                ys = forward(params, xs).cpu().numpy()
+                out[v].update((i + j, _digest(y)) for j, y in enumerate(ys))
+    return out
+
+
+def _plant_swap(torch, sc, fault: str, dev) -> tuple:
+    """A faulty swap for ``sc``: ``publish_before_copy`` returns fresh
+    tensors whose copy is queued on a side stream behind a 2 s device spin
+    (they read as NaN until it lands) without waiting for it;
+    ``corrupt_leaf_slice`` copies correctly, then adds 1.0 to a slice of
+    the first block's first leaf. Returns the faulty ``_to_device`` and a
+    list that receives the side stream to wait on after the check."""
+    real = sc._to_device
+    streams = []
+    if fault == "corrupt_leaf_slice":
+        def to_device(leaves):
+            out = real(leaves)
+            out[1].view(-1)[:64] += 1.0
+            return out
+        return to_device, streams
+
+    def to_device(leaves):
+        host = [torch.from_numpy(np.ascontiguousarray(a)).pin_memory()
+                for a in leaves]
+        out = [torch.full(tuple(a.shape), float("nan"), device=dev)
+               for a in leaves]
+        torch.cuda.current_stream().synchronize()
+        side, _ = _device_sleep(torch, 2.0)
+        with torch.cuda.stream(side):
+            for t, h in zip(out, host):
+                t.copy_(h, non_blocking=True)
+        streams.append(side)
+        return out          # no wait: the copy is still queued
+    return to_device, streams
+
+
+def _serve_cli(tmp: str, port: int, device: str) -> dict:
+    """18(d) and (e): the four attach modes as subprocesses against the
+    job's control plane, and the example with a control plane of its own,
+    all at once, each under SERVE_CLI_TIMEOUT; ``--serve`` and the example
+    on ``device``."""
+    cp = f"127.0.0.1:{port}"
+    mod = [sys.executable, "-m", "bluefog_tpu_torch.launcher"]
+    cmds = {
+        "serve": mod + ["--serve", "--once", "--device", device, "--cp",
+                        cp, "--serve-timeout", "120"],
+        "status": mod + ["--status", "--cp", cp],
+        "top": mod + ["--top", "--once", "--cp", cp],
+        "dump": mod + ["--dump", "--cp", cp, "--out",
+                       os.path.join(tmp, "dump"), "--dump-timeout", "60"],
+        "example": [sys.executable, "-m",
+                    "bluefog_tpu_torch.examples.serving", "--device",
+                    device],
+    }
+    base = dict(os.environ, PYTHONPATH=HERE)
+    own = {k: v for k, v in base.items()
+           if not k.startswith(("BFT_CP_", "BFT_SERVE_", "BFT_SLO",
+                                "BFT_TRACE_"))}
+    procs = {name: subprocess.Popen(
+        cmd, cwd=HERE, env=own if name == "example" else base,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for name, cmd in cmds.items()}
+    out = {}
+    try:
+        for name, p in procs.items():
+            so, se = p.communicate(timeout=SERVE_CLI_TIMEOUT)
+            out[name] = {"rc": p.returncode, "stdout": so, "stderr": se}
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return out
+
+
+def _check_cli(out: dict, tmp: str, card: str) -> dict:
+    def fail(name, why):
+        r = out[name]
+        raise RuntimeError(f"serving (d/e) {name}: {why}; rc {r['rc']}\n"
+                           f"{r['stdout'][-2000:]}\n{r['stderr'][-2000:]}")
+
+    for name, r in out.items():
+        if r["rc"] != 0:
+            fail(name, "exited non-zero")
+    swap = [ln for ln in out["serve"]["stdout"].splitlines()
+            if ln.startswith("bfrun --serve: snapshot v")]
+    if not swap:
+        fail("serve", "no swap line")
+    clients = re.search(r"serve clients: (\d+)/(\d+) heartbeating",
+                        out["status"]["stdout"])
+    if "serving plane" not in out["status"]["stdout"] or not clients \
+            or int(clients.group(1)) < 1:
+        fail("status", "no serving-plane lines with a live client")
+    if "rank(s)" not in out["top"]["stdout"]:
+        fail("top", "no frame")
+    path = os.path.join(tmp, "dump", "flight_0.json")
+    if not os.path.exists(path):
+        fail("dump", "no flight_0.json")
+    with open(path) as f:
+        doc = json.load(f)
+    n_events = len(doc["events"]["kind"])
+    if not n_events:
+        fail("dump", "an empty tail")
+    if "SERVING OK" not in out["example"]["stdout"]:
+        fail("example", "no SERVING OK")
+    res = {"swap_line": swap[0], "clients": clients.group(0),
+           "dump_events": n_events,
+           "top_lines": len(out["top"]["stdout"].splitlines())}
+    log(f"serving (d) ({card}): --serve --once: {swap[0]!r}; --status: "
+        f"{res['clients']}; --top --once: {res['top_lines']} lines; "
+        f"--dump: {n_events} events in flight_0.json")
+    log("serving (e): examples/serving.py on the card: "
+        + " | ".join(ln for ln in out["example"]["stdout"].splitlines()
+                     if ln.startswith(("step", "SERVING"))))
+    return res
+
+
+def serve_admission(torch, card: str) -> dict:
+    """18(b): BFT_SERVE_QUEUE_MAX=2 (soft 1, batches of 1) and a model that
+    waits on an event, on a control plane of its own with a small
+    snapshot: of 8 submissions one parks in the model, two fill the queue
+    and the rest must shed with gate ``queue_full``; ``stats()['shed']``
+    equals the shed count, and the admitted ones answer once released."""
+    import threading
+
+    from bluefog_tpu_torch.runtime import native
+    from bluefog_tpu_torch.serving import (RequestShed, ServeClient,
+                                           SnapshotPublisher)
+
+    knobs = {"BFT_SERVE_QUEUE_MAX": "2", "BFT_SERVE_QUEUE_SOFT": "1",
+             "BFT_SERVE_BATCH": "1", "BFT_SERVE_POLL_S": "0.05"}
+    saved = {k: os.environ.get(k) for k in knobs}
+    os.environ.update(knobs)
+    release = threading.Event()
+
+    def slow(params, xs):
+        release.wait(30)
+        return xs
+
+    try:
+        with native.ControlPlaneServer(world=1) as srv:
+            pcl = native.ControlPlaneClient("127.0.0.1", srv.port, 0)
+            SnapshotPublisher(pcl, shards=1).publish(
+                [np.zeros(10, np.float32)], 1)
+            sc = ServeClient([("127.0.0.1", srv.port)], slow)
+            try:
+                if not sc.wait_ready(30):
+                    raise RuntimeError("serving (b): no snapshot")
+                futs, gates = [], []
+                for i in range(8):
+                    try:
+                        futs.append((i, sc.submit(np.full(2, i, np.float32))))
+                    except RequestShed as exc:
+                        gates.append(exc.gate)
+                    time.sleep(0.02)
+                shed_stat = sc.stats()["shed"]
+                release.set()
+                answered = all(np.array_equal(f.result(30),
+                                              np.full(2, i, np.float32))
+                               for i, f in futs)
+            finally:
+                release.set()
+                sc.close()
+            pcl.close()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    res = {"shed": len(gates), "gates": sorted(set(gates)),
+           "stats_shed": shed_stat, "admitted": len(futs),
+           "answered": answered}
+    log(f"serving (b) ({card}): 8 submissions at queue max 2: "
+        f"{res['admitted']} admitted, {res['shed']} shed (gates "
+        f"{res['gates']}), stats()['shed'] {shed_stat}, admitted answered "
+        f"{answered}")
+    if not gates or set(gates) != {"queue_full"} or shed_stat != len(gates) \
+            or not answered:
+        raise RuntimeError(f"serving (b): admission {res}")
+    return res
+
+
+def serving(bf, fl, torch, card: str, winput_ms=None) -> dict:
+    """Phase 18, (0) and (a)-(e): see the module's docstring. Raises on
+    any failed check; ``winput_ms`` is phase 17(a)'s win-put ms/step."""
+    from bluefog_tpu_torch.runtime import control_plane as cp
+    from bluefog_tpu_torch.runtime import flight, metrics
+    from bluefog_tpu_torch.serving import snapshot
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    res = {"k1": serve_k1_check(fl, torch, dev)}
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="bf_serve_")
+    port = _free_port()
+    env = {"BFT_CP_HOST": "127.0.0.1", "BFT_CP_PORT": str(port),
+           "BFT_SERVE_PUBLISH_EVERY": "1",
+           "BFT_SERVE_SHARDS": str(SERVE_SHARDS),
+           "BFT_SERVE_BATCH": str(SERVE_BATCH),
+           "BFT_SERVE_POLL_S": str(SERVE_POLL_S),
+           "BFT_TRACE_SERVE": "1", "BFT_SLO": SERVE_SLO,
+           "BFT_FLIGHT_CAPACITY": "65536", "BFT_FLIGHT_DIR": tmp,
+           "BFT_METRICS_INTERVAL": "1"}
+    os.environ.update(env)
+    torch.cuda.reset_peak_memory_stats()
+    sc = None
+    try:
+        bf.init()
+        model = headline_model(bf, torch, dev, fl.flash_attention)
+        opt = bf.DistributedWinPutOptimizer(
+            torch.optim.Adam(model.parameters(), lr=1e-3), model,
+            bf.models.lm_loss)
+        batch = headline_batch(torch, dev)
+        names = [n for n, _ in model.named_parameters()]
+        skeleton = headline_model(bf, torch, dev, fl.flash_attention)
+        skeleton.to_empty(device="meta")
+        forward = _serve_forward(torch, skeleton, names)
+        ref_forward = _serve_forward(torch, model, names)
+        pool = np.random.default_rng(18).integers(
+            0, 32768, (SERVE_POOL, SEQ)).astype(np.int64)
+
+        sc = bf.serve_client(_padded(torch, forward, SERVE_BATCH),
+                             start=False)
+        h2d_ms, swaps, last = [], [], {}
+        to_device, install = sc._to_device, sc._install
+
+        def timed_to_device(leaves):
+            last["leaves"] = leaves
+            t0 = time.perf_counter()
+            out = to_device(leaves)
+            h2d_ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        def logged_install(leaves, ver, wire, dt):
+            done = install(leaves, ver, wire, dt)
+            if done:
+                swaps.append({"version": ver, "wire_bytes": wire,
+                              "pull_s": dt, "mb_per_s": wire / dt / 1e6,
+                              "h2d_ms": h2d_ms[-1]})
+            return done
+
+        sc._to_device, sc._install = timed_to_device, logged_install
+        sc.start()
+
+        def step(label: str) -> float:
+            pubs = metrics.counter("serve.publishes").value
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = float(opt.step(batch)["loss"])
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            if metrics.counter("serve.publishes").value != pubs + 1:
+                raise RuntimeError(f"serving {label}: the step did not "
+                                   "publish a snapshot (serve.publishes "
+                                   f"stayed at {pubs})")
+            if not math.isfinite(loss):
+                raise RuntimeError(f"serving {label}: loss {loss}")
+            return dt
+
+        # (a) lockstep: each step's version served, bit for bit
+        lock, serve_counts, saved = [], {k: 0 for k in KERNELS}, {}
+        for i in range(SERVE_STEPS):
+            dt = step("(a) lockstep")
+            ver = snapshot.current_version(cp.client())
+            deadline = time.monotonic() + SERVE_WAIT_S
+            while sc.refresh() < ver:
+                if time.monotonic() > deadline:
+                    raise RuntimeError(f"serving (a): version {ver} never "
+                                       "served")
+                time.sleep(0.05)
+            reqs = [pool[(SERVE_BATCH * i + j) % SERVE_POOL]
+                    for j in range(SERVE_BATCH)]
+            answers, counts, nb = _served_batch(fl, torch, sc, reqs)
+            for k in KERNELS:
+                serve_counts[k] += counts[k]
+            with torch.inference_mode():
+                direct = model(torch.from_numpy(np.stack(reqs)).to(dev))[
+                    :, -1].cpu().numpy()
+            equal = all(np.array_equal(a, d) for a, d in zip(answers, direct))
+            lock.append({"version": ver, "ms_per_step": dt * 1e3,
+                         "batches": nb, "counts": counts, "equal": equal,
+                         "finite": bool(np.isfinite(direct).all())})
+            log(f"serving (a) lockstep ({card}): step {i + 1} "
+                f"{dt * 1e3:.1f} ms with its publish, version {ver} served;"
+                f" {len(reqs)} answers equal the direct forward bit for bit "
+                f"{equal}; {nb} batch(es), launches {counts}")
+            want = {"flash_fwd": LAYERS * nb, "flash_bwd_dq": 0,
+                    "flash_bwd_dkv": 0}
+            if not equal or counts != want or not lock[-1]["finite"]:
+                raise RuntimeError(f"serving (a): lockstep {lock[-1]}, "
+                                   f"launches expected {want}")
+        saved[ver] = [p.detach().clone() for p in model.parameters()]
+
+        # (a) under load: idle first, then while the trainer trains
+        idle = _Load(sc, pool)
+        time.sleep(SERVE_IDLE_S)
+        idle_r = idle.finish("(a) idle")
+        load = _Load(sc, pool)
+        load_ms = []
+        for _ in range(SERVE_LOAD_STEPS):
+            load_ms.append(step("(a) under load") * 1e3)
+            saved[snapshot.current_version(cp.client())] = [
+                p.detach().clone() for p in model.parameters()]
+        time.sleep(2 * SERVE_POLL_S)
+        deadline = time.monotonic() + SERVE_WAIT_S
+        while sc.version() < max(saved) and time.monotonic() < deadline:
+            time.sleep(0.05)            # the last version answers too
+        time.sleep(0.5)
+        load_r = load.finish("(a) under load")
+        per_ver = _refs(torch, ref_forward, saved, pool, dev)
+        refs = set().union(*per_ver.values())
+        by_ver = {v: sum(c for key, c in load_r["seen"].items()
+                         if key in one) for v, one in per_ver.items()}
+        torn = {k: c for r in (idle_r, load_r) for k, c in r["seen"].items()
+                if k not in refs}
+        lock_ms = [x["ms_per_step"] for x in lock]
+        for label, r in (("idle", idle_r), ("while training", load_r)):
+            log(f"serving (a) {label} ({card}): {r['requests']} requests "
+                f"in {r['wall_s']:.2f} s, {r['req_per_s']:.2f} req/s, "
+                f"latency p50 {r['p50_ms']:.2f} ms p99 {r['p99_ms']:.2f} "
+                f"ms max {r['max_ms']:.2f} ms")
+        log(f"serving (a) under load: answers by version {by_ver}; "
+            f"answers matching no saved version {sum(torn.values())}")
+        if torn:
+            raise RuntimeError(f"serving (a): {sum(torn.values())} torn "
+                               "answers under load")
+        res["lockstep"] = lock
+        res["idle"] = {k: v for k, v in idle_r.items() if k != "seen"}
+        res["load"] = {k: v for k, v in load_r.items() if k != "seen"}
+        res["load"]["by_version"] = {str(k): v for k, v in by_ver.items()}
+        res["trainer"] = {"lockstep_ms": lock_ms, "load_ms": load_ms,
+                          "winput_17a_ms": winput_ms}
+        log(f"serving (a) trainer ({card}): ms/step with a publish "
+            f"{' '.join(f'{x:.1f}' for x in lock_ms)}, with a publish and "
+            f"the client serving {' '.join(f'{x:.1f}' for x in load_ms)}"
+            + (f"; phase 17(a) win-put {winput_ms:.3f} ms/step "
+               f"(ratio {np.median(load_ms) / winput_ms:.2f})"
+               if winput_ms else ""))
+
+        # decode ms of the served function at batch 1 and SERVE_BATCH
+        params = sc.params()
+        dec = {}
+        with torch.inference_mode():
+            for b in (1, SERVE_BATCH):
+                xs = torch.from_numpy(pool[:b]).to(dev)
+                dec[b] = cuda_ms(lambda: forward(params, xs), 3)
+        res["decode_ms"] = dec
+        res["swaps"] = swaps
+        log(f"serving (a) swaps ({card}): " + "; ".join(
+            f"v{s['version']} {s['wire_bytes']} wire bytes pulled in "
+            f"{s['pull_s']:.3f} s ({s['mb_per_s']:.1f} MB/s), H2D "
+            f"{s['h2d_ms']:.1f} ms" for s in swaps))
+        log(f"serving (a) decode ({card}): " + ", ".join(
+            f"batch {b} {ms:.3f} ms" for b, ms in dec.items())
+            + f" (CUDA events; served batches are padded to {SERVE_BATCH})")
+        del params
+
+        # (c) tracing and SLOs over the ring
+        time.sleep(3 * SERVE_POLL_S)     # a poll tick sets the gauges
+        rep = flight.serve_report()
+        n_req = sc.stats()["requests"]
+        covs = sorted(t["coverage"] for t in rep["traces"]) if rep else [0]
+        med = covs[len(covs) // 2]
+        p50 = metrics.gauge("slo.request_p50_us").value
+        p99 = metrics.gauge("slo.request_p99_us").value
+        largest = max(rep["phases"], key=lambda p: rep["phases"][p][
+            "p50_us"]) if rep else None
+        lin = snapshot.read_lineage(cp.client(), sc.version())
+        res["trace"] = {"requests": rep["requests"] if rep else 0,
+                        "submitted": n_req, "median_coverage": med,
+                        "p50_us": p50, "p99_us": p99, "largest": largest,
+                        "lineage": lin}
+        log(f"serving (c) ({card}): serve_report over the ring:\n"
+            + (flight.format_serve_report(rep) if rep else "(none)")
+            + f"\n  {n_req} requests submitted; median phase coverage "
+            f"{med:.4f}; gauges slo.request_p50_us {p50:.0f} "
+            f"slo.request_p99_us {p99:.0f}; largest phase {largest}; "
+            f"lineage of v{sc.version()} {lin}")
+        if not rep or not 0.99 * n_req <= rep["requests"] <= n_req \
+                or not 0.9 <= med <= 1.1 or not p50 > 0 or not p99 >= p50 \
+                or largest != "decode" or not lin \
+                or lin["step"] != sc.version():
+            raise RuntimeError(f"serving (c): {res['trace']}")
+
+        # (d) the attach modes and (e) the example, as subprocesses
+        res["cli"] = _check_cli(_serve_cli(tmp, port, dev.type), tmp, card)
+
+        # the planted faults: each faulty swap must show as torn answers
+        res["faults"] = {}
+        reqs = [pool[j] for j in range(SERVE_BATCH)]
+        for fault in SERVE_FAULTS:
+            bad, side = _plant_swap(torch, sc, fault, dev)
+            sc._to_device = bad
+            sc._install(last["leaves"], sc.version() + 1, 0, 1.0)
+            answers, _, _ = _served_batch(fl, torch, sc, reqs)
+            caught = sum((j, _digest(a)) not in refs
+                         for j, a in enumerate(answers))
+            for st in side:
+                st.synchronize()
+            sc._to_device = timed_to_device
+            res["faults"][fault] = caught
+            log(f"serving planted {fault}: {caught}/{len(answers)} answers "
+                "match no version (must be > 0)")
+            if not caught:
+                raise RuntimeError(f"serving: the planted {fault} was not "
+                                   "caught")
+        sc.close()
+        sc = None
+        opt.free()
+        del saved, model, opt, skeleton
+        res["peak_bytes"] = torch.cuda.max_memory_allocated()
+    finally:
+        if sc is not None:
+            sc.close()
+        bf.shutdown()
+        for k in env:
+            os.environ.pop(k, None)
+    torch.cuda.empty_cache()
+    res["admission"] = serve_admission(torch, card)
+    res["serve_counts"] = serve_counts
+    res["wall_s"] = time.perf_counter() - t_phase
+    log(f"serving ({card}): peak_mem_GiB {res['peak_bytes'] / 2**30:.3f}; "
+        f"serve LM launches {serve_counts}; phase wall "
+        f"{res['wall_s']:.1f} s")
+    return res
+
+
 def max_abs_errs(fl, torch, dev, B, S, H, D) -> dict:
     """Each kernel's max |kernel - plain| at the main path's shape.
 
@@ -4733,6 +5370,9 @@ def main() -> int:
     win = windows(bf, torch, card)
     torch.cuda.empty_cache()
     winopt = window_optimizers(bf, fl, torch, card, run)
+    torch.cuda.empty_cache()
+    serve = serving(bf, fl, torch, card, winopt["collective"][
+        "DistributedWinPutOptimizer"]["ms_per_step"])
 
     short = {"DistributedWinPutOptimizer": "win-put",
              "DistributedPullGetOptimizer": "pull-get",
@@ -4768,7 +5408,8 @@ def main() -> int:
                 **{f"{short[c]} LM, S={WINOPT_SHARD}": r["counts"][name]
                    for c, r in winopt["sharded"].items()},
                 **{f"hosted {short[c]} LM, S={WINOPT_SHARD}":
-                   r["counts"][name] for c, r in winopt["runs"].items()}},
+                   r["counts"][name] for c, r in winopt["runs"].items()},
+                "serve LM": serve["serve_counts"][name]},
         })
     os.makedirs(os.path.dirname(OUT), exist_ok=True)
     with open(OUT, "w") as f:
@@ -4778,7 +5419,7 @@ def main() -> int:
                    "moe": moe, "experts": experts, "parallel": par,
                    "vision": vision, "observability": obs,
                    "wire": wire_run, "liveness": live, "windows": win,
-                   "window_optimizers": winopt},
+                   "window_optimizers": winopt, "serving": serve},
                   f, indent=1)
     log(f"wall: {time.perf_counter() - t_start:.1f} s after the card check")
     log(json.dumps({"kernels": kernels}))

@@ -1015,7 +1015,8 @@ def _examples(tmp_dir: str) -> None:
     import torch.distributed as dist
 
     from bluefog_tpu_torch.examples import (average_consensus, benchmark,
-                                            mnist, moe, optimization, resnet)
+                                            mnist, moe, optimization, resnet,
+                                            serving)
 
     cpu = ["--device", "cpu"]
     dist.init_process_group("gloo")
@@ -1045,6 +1046,8 @@ def _examples(tmp_dir: str) -> None:
         "--batch-size", "4", "--val-batch-size", "4", "--base-lr", "0.004",
         "--warmup-epochs", "2", "--steps-per-epoch", "6", "--classes", "4",
         "--epochs", "1", "--dist-optimizer", "win_put"]))
+    if serving.main(cpu) != 0:
+        raise SystemExit("serving failed")
     dist.destroy_process_group()
 
 

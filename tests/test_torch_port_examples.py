@@ -26,8 +26,10 @@ example computes the same thing.
     counterpart, ``tests/test_resnet_example.py``, is marked slow at world
     8; this one is not), then ``benchmark.py``'s window kinds (``win_put``,
     ``pull_get``, ``push_sum``) and an epoch of ``resnet.py --dist-optimizer
-    win_put``;
-  * the window kinds of ``benchmark.py`` and ``resnet.py`` at world 1.
+    win_put``, and last ``serving.py`` (``SERVING OK``: rank 0's client
+    on the job's control plane);
+  * the window kinds of ``benchmark.py`` and ``resnet.py`` at world 1, and
+    ``serving.py`` at world 1 on a control plane of its own.
 """
 
 import os
@@ -253,6 +255,35 @@ def test_mnist_and_optimization_at_world_four(examples_run):
     err = re.search(r"\[gradient_tracking\] final \|\|w - w_opt\|\|: "
                     r"([0-9.e+-]+)", stdout)
     assert err and float(err.group(1)) < 1e-3, stdout
+
+
+def test_serving_at_world_four(examples_run):
+    """``serving.py`` last in the world: rank 0's client serves the
+    snapshots controller 0 publishes over the job's own control plane
+    (``MASTER_ADDR``, ``MASTER_PORT + 17``)."""
+    stdout, _ = examples_run
+    i = stdout.rindex(f"ranks: {N}")
+    served = re.findall(r"^step +(\d+): serving v(\d+) \((\d+) swaps",
+                        stdout[i:], re.M)
+    assert [s for s, _, _ in served] == ["5", "10", "15", "20"], stdout
+    assert all(int(v) >= 1 and int(n) >= 1 for _, v, n in served)
+    assert "SERVING OK" in stdout[i:]
+
+
+def test_serving_example_at_world_one(capsys, tmp_path, monkeypatch):
+    """``serving.py`` at world 1 serves a loopback control plane of its own
+    and leaves the knobs it set as it found them."""
+    from bluefog_tpu_torch.examples import serving
+
+    monkeypatch.setenv("BFT_FLIGHT_DIR", str(tmp_path))
+    for k in ("BFT_CP_HOST", "BFT_CP_PORT", "BFT_SERVE_PUBLISH_EVERY"):
+        monkeypatch.delenv(k, raising=False)
+    assert serving.main(["--device", "cpu", "--steps", "10"]) == 0
+    out = capsys.readouterr().out
+    assert "ranks: 1" in out and "SERVING OK" in out, out
+    assert re.findall(r"^step +(\d+): serving v", out, re.M) == ["5", "10"]
+    for k in ("BFT_CP_HOST", "BFT_CP_PORT", "BFT_SERVE_PUBLISH_EVERY"):
+        assert k not in os.environ
 
 
 def test_resnet_checkpoints_and_resumes_at_world_four(examples_run):

@@ -20,9 +20,10 @@ import bluefog_tpu
 import bluefog_tpu.parallel
 import bluefog_tpu_torch as bft
 from bluefog_tpu_torch import bench, lm_bench
+from bluefog_tpu_torch import launcher
 from bluefog_tpu_torch.examples import (average_consensus, benchmark,
                                         long_context_lm, mnist, moe,
-                                        optimization, resnet)
+                                        optimization, resnet, serving)
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -47,6 +48,22 @@ def test_port_imports_no_jax():
     assert res.stdout.startswith("clean")
 
 
+def test_chip_smoke_binds_each_top_level_name_once():
+    """A second ``def`` of a name in ``chip_smoke.py`` silently replaces the
+    first, and the earlier phase that calls it fails only on the card."""
+    import ast
+    import collections
+
+    with open(os.path.join(_REPO, "chip_smoke.py"), encoding="utf-8") as f:
+        tree = ast.parse(f.read())
+    names = collections.Counter(
+        node.name for node in tree.body
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)))
+    names.update(t.id for node in tree.body if isinstance(node, ast.Assign)
+                 for t in node.targets if isinstance(t, ast.Name))
+    assert [n for n, c in names.items() if c > 1] == []
+
+
 _ENTRIES = {
     "init": lambda: bft.init(),
     "init(local_size=1)": lambda: bft.init(local_size=1),
@@ -69,6 +86,12 @@ _ENTRIES = {
     "optimization.main": lambda: optimization.main(["--max-iter", "1"]),
     "benchmark.main": lambda: benchmark.main(["--model", "mlp"]),
     "resnet.train": lambda: resnet.train(resnet.parse_args(["--epochs", "1"])),
+    "ServeClient": lambda: bft.ServeClient([("127.0.0.1", 1)]),
+    "serve_client": lambda: bft.serve_client(
+        endpoints=[("127.0.0.1", 1)]),
+    "serving.main": lambda: serving.main([]),
+    "launcher --serve": lambda: launcher.main(
+        ["--serve", "--cp", "127.0.0.1:1"]),
 }
 
 
@@ -176,9 +199,7 @@ _ABSENT_ON_PURPOSE = {"parallel": {"ep_mesh", "tp_mesh", "pp_mesh",
                       "top": {"TrainState", "replicate", "unreplicate",
                               "mesh", "machine_mesh", "rank_sharding",
                               "shard_rank_stacked"}}
-_NOT_YET = {"parallel": set(), "utils": set(),
-            # ROADMAP Queue 1, item 8: the serve client
-            "top": {"ServeClient", "serve_client", "RequestShed"}}
+_NOT_YET = {"parallel": set(), "utils": set(), "top": set()}
 
 
 def _init_names(path: str) -> set:
@@ -212,7 +233,7 @@ def test_port_top_level_names_against_jax():
     assert port - jax_names == set()
     assert jax_names - port == _ABSENT_ON_PURPOSE["top"] | _NOT_YET["top"]
     assert len(_ABSENT_ON_PURPOSE["top"]) == 7
-    assert len(_NOT_YET["top"]) == 3
+    assert len(_NOT_YET["top"]) == 0
     for name in ("resnet_from_torch", "vgg_from_torch"):
         assert getattr(bft, name) is getattr(bft.utils, name)
 
