@@ -1,12 +1,41 @@
-"""``bfrun``'s attach modes for jobs of the port.
+"""``bfrun`` for jobs of the port: launch a program, or attach to a job.
 
-Counterpart of ``bluefog_tpu/launcher.py``'s external views: ``--status``
-(the cluster-health view, ``--strict`` to gate on its findings), ``--top``
-(the live dashboard over the streamed time series), ``--dump`` (a
-cluster-wide flight-recorder dump retrieved over the control plane) and
-``--serve`` (a read-only serve client that mirrors the job's snapshots,
-and with ``--serve-model MODULE:FN`` serves batched inference). Each is a
-raw control-plane client that reaches a running job from outside it: no
+Counterpart of ``bluefog_tpu/launcher.py``, with one process per rank. The
+launch modes:
+
+  * exec: export the port's knobs (``--timeline-filename`` ->
+    ``BFT_TIMELINE``, ``--verbose`` -> ``BFT_LOG_LEVEL=debug``,
+    ``--cp-shards N`` -> ``BFT_CP_SHARDS``, ``--chaos SPEC`` ->
+    ``BFT_CP_FAULT`` after ``parse_fault_spec`` has checked it) and exec
+    the program;
+  * ``-np N --coordinator HOST:PORT --process-id i``: the same, as rank i
+    of a world of N, through ``torchrun``'s environment (``MASTER_ADDR``,
+    ``MASTER_PORT``, ``WORLD_SIZE``, ``RANK``; ``LOCAL_RANK`` and
+    ``LOCAL_WORLD_SIZE`` when the fan-out gives them), which ``bf.init``
+    reads. The control plane then listens on ``MASTER_PORT + 17``;
+  * ``-H host:slots,...`` or ``--hostfile``: this one command drives the
+    whole job — local slots as subprocesses, remote ones over ssh — with
+    the coordinator picked, ids assigned, a job secret minted
+    (``BFT_CP_SECRET``), exit codes aggregated and the job killed on
+    Ctrl-C or at the first failure; ``--cp-shards N`` starts N shard
+    servers (``runtime/shard_server.py``) and exports ``BFT_CP_HOSTS``;
+    ``--elastic`` respawns a crashed rank with ``BFT_INCARNATION`` raised
+    by one;
+  * ``--simulate N``: N ranks of this host as N processes on the CPU over
+    gloo (``BFT_SIMULATE_DEVICES=N``), where the JAX launcher runs one
+    process over N forced CPU devices.
+
+    python -m bluefog_tpu_torch.launcher --timeline-filename /tmp/tl_ -- python train.py
+    python -m bluefog_tpu_torch.launcher -H localhost:4 -- python train.py
+    python -m bluefog_tpu_torch.launcher --simulate 4 -- python train.py
+
+The attach modes are external views of a running job: ``--status`` (the
+cluster-health view, ``--strict`` to gate on its findings), ``--top`` (the
+live dashboard over the streamed time series), ``--dump`` (a cluster-wide
+flight-recorder dump retrieved over the control plane) and ``--serve`` (a
+read-only serve client that mirrors the job's snapshots, and with
+``--serve-model MODULE:FN`` serves batched inference). Each is a raw
+control-plane client that reaches a running job from outside it: no
 process group, no membership registration.
 
     python -m bluefog_tpu_torch.launcher --status [--strict] --cp HOST:PORT
@@ -14,32 +43,83 @@ process group, no membership registration.
     python -m bluefog_tpu_torch.launcher --dump --out DIR --cp HOST:PORT
     python -m bluefog_tpu_torch.launcher --serve [--once] [--device cpu]
 
-The address is ``--cp``, else ``BFT_CP_HOSTS``, else ``BFT_CP_HOST`` and
-``BFT_CP_PORT``, else ``torchrun``'s ``MASTER_ADDR`` and ``MASTER_PORT +
-17`` (the port's attach convention, where the JAX package reads
+Their address is ``--cp``, else ``BFT_CP_HOSTS``, else ``BFT_CP_HOST`` and
+``BFT_CP_PORT``, else ``MASTER_ADDR`` and ``MASTER_PORT + 17`` (the port's
+attach convention, where the JAX package reads
 ``JAX_COORDINATOR_ADDRESS``). The parser is the JAX launcher's, flag for
-flag; launching a program (``-np``, ``-H``, ``--simulate``, ``--elastic``,
-``--chaos`` with a command) is not ported yet (ROADMAP Queue 1, item 9):
-the port's jobs start under ``torchrun``.
+flag, plus ``--device`` for ``--serve``.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+import shlex
+import socket
+import subprocess
 import sys
+import threading
 import time
 from typing import List, Optional, Tuple
 
 from .runtime.config import knob_env
 
+# Remote shells print this after turning pty echo off; the launcher holds the
+# job secret until it arrives (see the ssh fan-out below).
+_SECRET_READY = "BF_SECRET_READY"
+
+
+def _send_secret_when_ready(p: "subprocess.Popen", secret: str,
+                            host: str) -> None:
+    """Write the job secret to ssh stdin only after the remote's
+    ``stty -echo`` has run, then pump the rest of its output through.
+
+    The pty allocated by ``ssh -tt`` starts with ECHO on; a secret written
+    at Popen time races the remote ``stty -echo`` and can be echoed into
+    this process's output. The remote prints ``BF_SECRET_READY`` *after*
+    echo is off, so waiting for that marker closes the race.
+    """
+    buf = b""
+    marker = _SECRET_READY.encode()
+    try:
+        while marker not in buf:
+            chunk = p.stdout.read(1)
+            if not chunk:  # ssh died before the marker — nothing to send
+                sys.stdout.buffer.write(buf)
+                sys.stdout.buffer.flush()
+                return
+            buf += chunk
+        p.stdin.write((secret + "\n").encode())
+        p.stdin.flush()
+        # forward everything after the marker line to our stdout; if OUR
+        # stdout goes away (e.g. `bfrun ... | head`), keep DRAINING the ssh
+        # pipe — stopping would fill it and wedge the remote job
+        sink_broken = False
+
+        def forward(chunk: bytes) -> None:
+            nonlocal sink_broken
+            if sink_broken:
+                return
+            try:
+                sys.stdout.buffer.write(chunk)
+                sys.stdout.buffer.flush()
+            except (OSError, ValueError):
+                sink_broken = True
+
+        rest = buf.split(marker, 1)[1].lstrip(b"\r\n")
+        if rest:
+            forward(rest)
+        for chunk in iter(lambda: p.stdout.read(4096), b""):
+            forward(chunk)
+    except (OSError, ValueError):
+        pass  # ssh pipe broke at teardown — the exit-code path reports it
+
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="bfrun",
-        description="Attach to a running bluefog_tpu_torch job (--status, "
-                    "--top, --dump, --serve). Launching a program is not "
-                    "ported yet: run it under torchrun.",
+        description="Launch a bluefog_tpu_torch program, or attach to a "
+                    "running job (--status, --top, --dump, --serve).",
     )
     p.add_argument("-np", "--num-proc", type=int, default=None,
                    help="total number of processes (multi-host); default: "
@@ -185,6 +265,465 @@ def build_parser() -> argparse.ArgumentParser:
                    help="program and arguments to run")
     return p
 
+
+def parse_hosts(hosts: str = None,
+                hostfile: str = None) -> List[Tuple[str, int]]:
+    """[(host, slots)] from -H 'h1:2,h2:2' or a hostfile.
+
+    Hostfile lines accept the reference's 'host slots=N' (run.py:96-196),
+    plus 'host:N' and bare 'host' (slots=1); '#' comments and blanks skipped.
+    """
+    entries: List[Tuple[str, int]] = []
+    if hosts:
+        for item in hosts.split(","):
+            item = item.strip()
+            if not item:
+                continue
+            host, _, slots = item.partition(":")
+            entries.append((host, int(slots) if slots else 1))
+    elif hostfile:
+        with open(hostfile) as f:
+            for line in f:
+                line = line.split("#", 1)[0].strip()
+                if not line:
+                    continue
+                parts = line.split()
+                host = parts[0]
+                slots = 1
+                for tok in parts[1:]:
+                    if tok.startswith("slots="):
+                        slots = int(tok[len("slots="):])
+                if ":" in host:
+                    host, _, s = host.partition(":")
+                    slots = int(s)
+                entries.append((host, slots))
+    for host, slots in entries:
+        if slots < 1:
+            raise ValueError(f"host {host}: slots must be >= 1, got {slots}")
+    return entries
+
+
+_LOCAL_NAMES = {"localhost", "127.0.0.1", "::1"}
+
+
+def _is_local(host: str) -> bool:
+    return host in _LOCAL_NAMES or host in (
+        socket.gethostname(), socket.getfqdn())
+
+
+def _check_ssh(host: str, port: int) -> bool:
+    """The reference's pre-launch ssh reachability probe (run.py:205-226)."""
+    r = subprocess.run(
+        ["ssh", "-o", "BatchMode=yes", "-o", "ConnectTimeout=5",
+         "-p", str(port), host, "true"],
+        stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL)
+    return r.returncode == 0
+
+
+def _free_port() -> int:
+    s = socket.socket()
+    s.bind(("", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def _port_free(port: int) -> bool:
+    with socket.socket() as s:
+        try:
+            s.bind(("", port))
+        except OSError:
+            return False
+    return True
+
+
+def _free_master_port(cp_ports: int = 1) -> int:
+    """A free ``MASTER_PORT`` whose control-plane ports (``MASTER_PORT +
+    17`` and the ``cp_ports - 1`` above it, where rank 0 serves) are free
+    too, so the job's rendezvous and its control plane cannot collide."""
+    from .runtime.control_plane import PORT_OFFSET
+
+    for _ in range(64):
+        port = _free_port()
+        cp = range(port + PORT_OFFSET, port + PORT_OFFSET + cp_ports)
+        if cp[-1] <= 65535 and all(_port_free(p) for p in cp):
+            return port
+    raise RuntimeError("no free port P with P + 17 free as well")
+
+
+# env the fan-out forwards to remote processes (local children inherit all):
+# the port's knobs and the framework's own (torch, NCCL), as the JAX
+# launcher forwards BLUEFOG_/JAX_/XLA_
+_FORWARD_ENV_PREFIXES = ("BFT_", "TORCH_", "NCCL_")
+
+
+def _supervise_elastic(procs, spawn, base_inc: int, budget: int,
+                       min_world: int) -> List[int]:
+    """Elastic child supervision (`bfrun --elastic`).
+
+    A crashed rank is respawned in place with ``BFT_INCARNATION`` bumped —
+    the control plane then fences the crash's zombie connections and the
+    rank rejoins through quarantined state transfer. Respawns back off
+    exponentially (0.5 s doubling, capped at 10 s) and are bounded by
+    ``budget`` per rank. A terminal failure propagates only when a rank's
+    budget is exhausted (its code lands in the returned list; the job
+    keeps running for the survivors) or the surviving world would drop
+    below ``min_world`` (the whole job is torn down). Returns per-rank
+    terminal exit codes (None for ranks still running at a min-world
+    teardown — the caller's cleanup terminates and aggregates them).
+    """
+    total = len(procs)
+    restarts = [0] * total
+    incs = [base_inc] * total
+    final: List = [None] * total     # terminal exit code per rank
+    respawn_at = [0.0] * total       # backoff deadline for pending respawns
+    pending = set()
+    while True:
+        now = time.time()
+        for i in range(total):
+            if final[i] is not None:
+                continue
+            if i in pending:
+                if now >= respawn_at[i]:
+                    pending.discard(i)
+                    incs[i] += 1
+                    procs[i] = spawn(i, incs[i])
+                continue
+            c = procs[i].poll()
+            if c is None:
+                continue
+            if c == 0:
+                final[i] = 0
+            elif restarts[i] < budget:
+                restarts[i] += 1
+                delay = min(0.5 * (2 ** (restarts[i] - 1)), 10.0)
+                print(
+                    f"bfrun: rank {i} exited with {c}; respawning as "
+                    f"incarnation {incs[i] + 1} in {delay:.1f}s "
+                    f"(restart {restarts[i]}/{budget})", file=sys.stderr)
+                respawn_at[i] = now + delay
+                pending.add(i)
+            else:
+                final[i] = c
+                print(
+                    f"bfrun: rank {i} exited with {c} and exhausted its "
+                    f"restart budget ({budget}); marking it failed",
+                    file=sys.stderr)
+        failed = sum(1 for c in final if c not in (None, 0))
+        if failed and total - failed < min_world:
+            print(
+                f"bfrun: surviving world {total - failed} dropped below "
+                f"--min-world {min_world}; terminating the job",
+                file=sys.stderr)
+            return [c for c in final if c is not None]
+        if all(c is not None for c in final):
+            return final
+        time.sleep(0.1)
+
+
+def _spawn_shard_servers(n: int, total: int, advertise_host: str):
+    """Launch N control-plane shard server processes on the launching host
+    (``bfrun --cp-shards N``); returns (procs, BFT_CP_HOSTS value).
+    Blocks until every shard prints its READY line so children can never
+    race a bind; server processes inherit the freshly minted job secret
+    through the environment.
+
+    With ``BFT_CP_REPLICATION`` (default on) and N > 1 the spawn is
+    two-phase: every shard reports its bound port first, the full ring is
+    written back over stdin, and each shard wires WAL replication to its
+    ring successor before declaring READY — an acked control-plane write
+    then survives any single shard's SIGKILL."""
+    script = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "runtime", "shard_server.py")
+    replicate = n > 1 and bool(int(knob_env("BFT_CP_REPLICATION")))
+    procs = []
+
+    def _fail(i, why):
+        for q in procs:
+            q.terminate()
+        raise RuntimeError(f"control-plane shard {i} failed to start: {why}")
+
+    for i in range(n):
+        cmd = [sys.executable, script, "--port", "0", "--world", str(total),
+               "--shard", str(i)]
+        if replicate:
+            cmd.append("--expect-peers")
+        procs.append(subprocess.Popen(
+            cmd, stdout=subprocess.PIPE,
+            stdin=subprocess.PIPE if replicate else None, text=True))
+    ports = []
+    marker = "BF_SHARD_PORT" if replicate else "BF_SHARD_READY"
+    for i, p in enumerate(procs):
+        line = p.stdout.readline()
+        if not line.startswith(marker):
+            _fail(i, repr(line))
+        ports.append(int(line.split()[1]))
+    if replicate:
+        ring = ",".join(f"127.0.0.1:{port}" for port in ports)
+        for i, p in enumerate(procs):
+            p.stdin.write(f"BF_SHARD_PEERS {ring}\n")
+            p.stdin.flush()
+        for i, p in enumerate(procs):
+            line = p.stdout.readline()
+            if not line.startswith("BF_SHARD_READY"):
+                _fail(i, repr(line))
+    eps = [f"{advertise_host}:{port}" for port in ports]
+    return procs, ",".join(eps)
+
+
+def _stop_shard_servers(procs) -> None:
+    for p in procs:
+        if p.poll() is None:
+            p.terminate()
+    for p in procs:
+        try:
+            p.wait(timeout=5)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.wait()
+
+
+def _mint_secret(env) -> None:
+    """One shared secret per job, minted by the launcher into ``env`` and
+    handed to every process through the environment (remote ones over ssh
+    stdin): the control-plane server then rejects any connection that
+    cannot complete the HMAC handshake (reference: HMAC-signed launcher/task
+    messages, run/horovodrun/common/util/network.py:69-86)."""
+    if "BFT_CP_SECRET" not in env:
+        import secrets as _secrets
+
+        env["BFT_CP_SECRET"] = _secrets.token_hex(16)
+
+
+def _base_incarnation() -> int:
+    return max(0, int(knob_env("BFT_INCARNATION")))
+
+
+def _run_job(total: int, spawn, args, base_inc: int) -> int:
+    """Start ``total`` processes with ``spawn(i, incarnation)``, wait for
+    them (elastically under ``--elastic``, else the first failure kills the
+    job: mpirun's semantics) and return the job's exit code, shell-style
+    (a signal death N is 128 + N). Ctrl-C, or SIGTERM to this launcher,
+    interrupts every process and returns 130."""
+    import signal
+
+    def _interrupted(signum, frame):
+        raise KeyboardInterrupt
+
+    old = signal.signal(signal.SIGTERM, _interrupted)
+    procs: List[subprocess.Popen] = []
+    try:
+        try:
+            for i in range(total):
+                procs.append(spawn(i, base_inc))
+            if args.elastic is not None:
+                own_exit = _supervise_elastic(
+                    procs, spawn, base_inc, max(0, args.elastic),
+                    max(1, args.min_world))
+            else:
+                while True:
+                    codes = [p.poll() for p in procs]
+                    failed = [c for c in codes if c not in (None, 0)]
+                    if failed or all(c is not None for c in codes):
+                        break
+                    time.sleep(0.1)
+                # codes at loop exit are authoritative: processes still
+                # running get terminated below, and their -SIGTERM must
+                # not mask the real failure
+                own_exit = [c for c in codes if c is not None]
+        except KeyboardInterrupt:
+            for p in procs:
+                if p.poll() is None:
+                    p.send_signal(signal.SIGINT)
+            deadline = time.time() + 5
+            for p in procs:
+                try:
+                    p.wait(timeout=max(0.1, deadline - time.time()))
+                except subprocess.TimeoutExpired:
+                    p.kill()
+                    p.wait()
+            return 130
+        for p in procs:
+            if p.poll() is None:
+                p.terminate()
+            try:
+                p.wait(timeout=10)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
+        for c in own_exit:
+            if c != 0:
+                return c if c > 0 else 128 + abs(c)
+        return 0
+    finally:
+        signal.signal(signal.SIGTERM, old)
+
+
+def _fanout(args) -> int:
+    """Drive the whole job from this one shell: launch every process, stream
+    its output, aggregate exit codes, kill-all on Ctrl-C or first failure."""
+    entries = parse_hosts(args.hosts, args.hostfile)
+    if not entries:
+        print("bfrun: empty host list", file=sys.stderr)
+        return 1
+    total = sum(s for _, s in entries)
+    if args.num_proc is not None and args.num_proc != total:
+        print(f"bfrun: -np {args.num_proc} does not match the {total} slots "
+              f"in the host list", file=sys.stderr)
+        return 1
+
+    remote_hosts = sorted({h for h, _ in entries if not _is_local(h)})
+    if remote_hosts:
+        # concurrent probes: a slow/down host costs one timeout, not one per
+        # host (the reference launcher also probes in parallel)
+        from concurrent.futures import ThreadPoolExecutor
+        with ThreadPoolExecutor(max_workers=min(32, len(remote_hosts))) as ex:
+            ok = list(ex.map(lambda h: _check_ssh(h, args.ssh_port),
+                             remote_hosts))
+        unreachable = [h for h, good in zip(remote_hosts, ok) if not good]
+        if unreachable:
+            print(f"bfrun: ssh unreachable host(s): {', '.join(unreachable)}",
+                  file=sys.stderr)
+            return 1
+
+    _mint_secret(os.environ)
+
+    coordinator = args.coordinator
+    if coordinator is None:
+        first = entries[0][0]
+        if _is_local(first):
+            # remote children must be able to route to process 0: advertise
+            # a real hostname, loopback only for all-local jobs
+            chost = socket.getfqdn() if remote_hosts else "127.0.0.1"
+        else:
+            chost = first
+        # the port is probed free on THIS machine; when process 0 runs
+        # remotely that is only a likely-free ephemeral pick — pass an
+        # explicit --coordinator if the bind fails there
+        coordinator = f"{chost}:{_free_master_port()}"
+
+    # Sharded control plane: the fan-out owns N real shard server processes
+    # and every child (local and remote — BFT_* env is forwarded) routes
+    # over them instead of rank 0 serving in-process.
+    shard_procs: List[subprocess.Popen] = []
+    if args.cp_shards and args.cp_shards > 1:
+        shost = socket.getfqdn() if remote_hosts else "127.0.0.1"
+        try:
+            shard_procs, cp_hosts = _spawn_shard_servers(
+                args.cp_shards, total, shost)
+        except (RuntimeError, OSError, ValueError) as exc:
+            print(f"bfrun: {exc}", file=sys.stderr)
+            return 1
+        os.environ["BFT_CP_HOSTS"] = cp_hosts
+        os.environ["BFT_CP_SERVE"] = "0"
+        print(f"bfrun: control plane sharded over {args.cp_shards} "
+              f"server(s): {cp_hosts}", file=sys.stderr)
+
+    def child_args(pid: int) -> List[str]:
+        out = ["-m", "bluefog_tpu_torch.launcher", "-np", str(total),
+               "--coordinator", coordinator, "--process-id", str(pid)]
+        if args.simulate:
+            out += ["--simulate", str(args.simulate)]
+        if args.timeline_filename:
+            out += ["--timeline-filename", args.timeline_filename]
+        if args.verbose:
+            out += ["--verbose"]
+        if args.chaos:
+            out += ["--chaos", args.chaos]
+        return out + ["--"] + args.command
+
+    # slot index -> host, and its place among the host's slots (stable
+    # across respawns in elastic mode): torchrun's LOCAL_RANK and
+    # LOCAL_WORLD_SIZE
+    slot_host = [h for h, s in entries for _ in range(s)]
+    host_slots = {h: slot_host.count(h) for h in slot_host}
+    slot_local = [slot_host[:i].count(h) for i, h in enumerate(slot_host)]
+    base_inc = _base_incarnation()
+
+    def spawn(pid: int, inc: int) -> subprocess.Popen:
+        host = slot_host[pid]
+        local = {"LOCAL_RANK": str(slot_local[pid]),
+                 "LOCAL_WORLD_SIZE": str(host_slots[host]),
+                 "BFT_INCARNATION": str(inc)}
+        if _is_local(host):
+            return subprocess.Popen([sys.executable] + child_args(pid),
+                                    env={**os.environ, **local})
+        # NEVER put the job secret on the remote command line —
+        # /proc/<pid>/cmdline is world-readable, so any local user on a
+        # shared node could read it and pass the HMAC handshake. It
+        # travels over ssh stdin instead (echo off: -tt allocates a pty
+        # that would otherwise echo the line into captured output).
+        exports = " ".join(
+            f"{k}={shlex.quote(v)}"
+            for k, v in os.environ.items()
+            if (k.startswith(_FORWARD_ENV_PREFIXES) or k == "PYTHONPATH")
+            and k not in ("BFT_CP_SECRET", *local))
+        exports += "".join(f" {k}={v}" for k, v in local.items())
+        secret = os.environ.get("BFT_CP_SECRET", "")
+        # '&&' so a missing remote workdir fails loudly instead of becoming
+        # an opaque ModuleNotFoundError later. The ready marker closes a
+        # race: until the remote stty runs, the pty's ECHO flag is still
+        # on, so a secret written at Popen time could be echoed back into
+        # the launcher's captured output.
+        remote = ("stty -echo 2>/dev/null; "
+                  f"printf '{_SECRET_READY}\\n'; "
+                  "IFS= read -r BFT_CP_SECRET; "
+                  "export BFT_CP_SECRET; "
+                  f"cd {shlex.quote(os.getcwd())} && "
+                  f"env {exports} {args.remote_python} "
+                  + shlex.join(child_args(pid)))
+        # -tt: a pty ties the remote process to the connection, so kill-all
+        # on the ssh client actually kills the job on the host (and
+        # forwards Ctrl-C)
+        p = subprocess.Popen(
+            ["ssh", "-tt", "-o", "BatchMode=yes",
+             "-p", str(args.ssh_port), host, remote],
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE)
+        threading.Thread(
+            target=_send_secret_when_ready,
+            args=(p, secret, host), daemon=True).start()
+        return p
+
+    try:
+        return _run_job(total, spawn, args, base_inc)
+    finally:
+        _stop_shard_servers(shard_procs)
+
+
+def _split_address(address: str) -> Tuple[str, int]:
+    host, sep, port = address.rpartition(":")
+    if not sep or not host:
+        raise ValueError(f"--coordinator {address!r} is not host:port")
+    return host, int(port)
+
+
+def _simulate(args, env: dict) -> int:
+    """``--simulate N``: N ranks of this host as N processes on the CPU
+    over gloo (``BFT_SIMULATE_DEVICES=N`` makes ``bf.init`` take the CPU
+    even beside a GPU), where the JAX launcher runs one process over N
+    forced CPU devices. Under ``-np P --process-id i`` the N processes are
+    ranks ``i*N .. i*N+N-1`` of a world of ``P*N``, as JAX's multi-process
+    simulate job ranks over every process's devices. The processes share
+    this terminal; their exit codes aggregate as the fan-out's do."""
+    n = args.simulate
+    pid = args.process_id or 0
+    world = (args.num_proc or 1) * n
+    if args.coordinator:
+        host, port = _split_address(args.coordinator)
+    else:
+        host, port = "127.0.0.1", _free_master_port(
+            max(1, args.cp_shards or 1))
+    _mint_secret(env)
+    env.update(BFT_SIMULATE_DEVICES=str(n), MASTER_ADDR=host,
+               MASTER_PORT=str(port), WORLD_SIZE=str(world),
+               LOCAL_WORLD_SIZE=str(n))
+
+    def spawn(j: int, inc: int) -> subprocess.Popen:
+        return subprocess.Popen(args.command, env={
+            **env, "RANK": str(pid * n + j), "LOCAL_RANK": str(j),
+            "BFT_INCARNATION": str(inc)})
+
+    return _run_job(n, spawn, args, _base_incarnation())
 
 
 def _cp_address(args, what: str):
@@ -884,12 +1423,44 @@ def main(argv=None) -> int:
     if not args.command:
         build_parser().print_usage()
         return 1
-    raise SystemExit(
-        "bfrun: launching a program is not ported to bluefog_tpu_torch yet "
-        "(ROADMAP Queue 1, item 9: the launch modes); start the job with "
-        "torchrun (torchrun --nproc_per_node N your_script.py) and attach "
-        "to it with --status, --top, --dump or --serve")
+    if args.command and args.command[0] == "--":
+        args.command = args.command[1:]
 
+    # fan-out mode: a host list without an explicit --process-id means THIS
+    # invocation fans out the whole job (children re-enter below with ids)
+    if (args.hosts or args.hostfile) and args.process_id is None:
+        return _fanout(args)
+
+    env = dict(os.environ)
+    if args.cp_shards and args.cp_shards > 1:
+        # exec mode: rank 0's bf.init serves all N shards in-process
+        # (the fan-out above launches real server processes instead)
+        env["BFT_CP_SHARDS"] = str(args.cp_shards)
+    if args.timeline_filename:
+        env["BFT_TIMELINE"] = args.timeline_filename
+    if args.verbose:
+        env["BFT_LOG_LEVEL"] = "debug"
+    if args.chaos:
+        # validate NOW so a typo'd spec fails the launch, not (silently,
+        # as a warning) deep inside every child's native-runtime load
+        from .runtime.native import parse_fault_spec
+        parse_fault_spec(args.chaos)
+        env["BFT_CP_FAULT"] = args.chaos
+    if args.num_proc and args.num_proc > 1 and (
+            not args.coordinator or args.process_id is None):
+        print("bfrun: -np > 1 requires --coordinator and --process-id",
+              file=sys.stderr)
+        return 1
+    if args.simulate:
+        return _simulate(args, env)
+    if args.num_proc and args.coordinator and args.process_id is not None:
+        # torchrun's environment, which bf.init joins through env://
+        host, port = _split_address(args.coordinator)
+        env.update(MASTER_ADDR=host, MASTER_PORT=str(port),
+                   WORLD_SIZE=str(args.num_proc), RANK=str(args.process_id))
+
+    cmd = args.command
+    os.execvpe(cmd[0], cmd, env)
 
 if __name__ == "__main__":
     sys.exit(main())

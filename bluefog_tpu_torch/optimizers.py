@@ -103,6 +103,26 @@ from .runtime.timeline import timeline_context
 _CONSENSUS_MIN_GAP = 0.9
 
 
+def fused_combine(tensors: List[torch.Tensor], plan: CombinePlan, *,
+                  hierarchical: bool = False) -> List[torch.Tensor]:
+    """The combine of ``plan`` over ``tensors`` packed into one flat fusion
+    buffer, so it costs one send per shift; returns the combined tensors
+    (the torch frontend's ``DistributedTorchOptimizer`` runs it too)."""
+    st = _global_state()
+    spec = _fusion.make_spec(tensors)
+    flat = _fusion.pack(tensors, spec)
+    if hierarchical:
+        work, finish = hierarchical_start(plan, [flat])
+        for req in work:
+            req.wait()
+        (out,) = finish()
+    else:
+        (out,) = spmd_combine(plan.weight_array(), [flat], rank=st.rank,
+                              n=plan.n, shifts=plan.shifts,
+                              use_gather=plan.use_gather)
+    return _fusion.unpack(out, spec)
+
+
 class _FusedOptimizer:
     """Shared machinery: local step, then one fused communication."""
 
@@ -137,19 +157,8 @@ class _FusedOptimizer:
 
     def _combine(self, tensors: List[torch.Tensor],
                  plan: CombinePlan) -> List[torch.Tensor]:
-        st = _global_state()
-        spec = _fusion.make_spec(tensors)
-        flat = _fusion.pack(tensors, spec)
-        if self._comm_kind == "hierarchical":
-            work, finish = hierarchical_start(plan, [flat])
-            for req in work:
-                req.wait()
-            (out,) = finish()
-        else:
-            (out,) = spmd_combine(plan.weight_array(), [flat], rank=st.rank,
-                                  n=plan.n, shifts=plan.shifts,
-                                  use_gather=plan.use_gather)
-        return _fusion.unpack(out, spec)
+        return fused_combine(tensors, plan,
+                             hierarchical=self._comm_kind == "hierarchical")
 
     def step(self, batch) -> Dict[str, torch.Tensor]:
         """One training iteration of this rank; returns ``{"loss": ...}``."""

@@ -5,13 +5,16 @@ Counterpart of the registry in ``bluefog_tpu/runtime/config.py``
 that runs both packages on one host configures each apart; every knob
 records the ``BLUEFOG_*`` knob of the JAX package it stands for
 (``jax_name``) and keeps that knob's default. Only the knobs the port reads
-are declared. ``tests/test_torch_port_knobs.py`` walks the port's sources
-and fails on a read of an undeclared ``BFT_*`` or ``BLUEFOG_*`` name, or on
-a read whose literal default differs from the registry's.
+are declared; the JAX knobs it has no counterpart for are listed, each with
+why, in ``ABSENT_ON_PURPOSE``. ``tests/test_torch_port_knobs.py`` walks the
+port's sources and fails on a read of an undeclared ``BFT_*`` or
+``BLUEFOG_*`` name, or on a read whose literal default differs from the
+registry's.
 
 The port's launcher environment (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``,
-``LOCAL_WORLD_SIZE``, ``LOCAL_RANK``) and ``CUDA_HOME`` are not knobs of the
-package: they come from ``torchrun`` and the CUDA toolkit.
+``LOCAL_WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_PORT``) and ``CUDA_HOME`` are
+not knobs of the package: they come from ``torchrun`` (or the port's own
+launcher, which sets the same names) and the CUDA toolkit.
 """
 
 from __future__ import annotations
@@ -311,6 +314,16 @@ KNOBS: Tuple[Knob, ...] = (
     Knob("BFT_STALL_WARNING_TIME", "float", 60.0,
          "seconds an outstanding handle may stay unfinished before the "
          "watchdog warns about it (once)", "BLUEFOG_STALL_WARNING_TIME"),
+    # -- the lifecycle (runtime/state.py) and the launcher (launcher.py) ----
+    Knob("BFT_SKIP_NEGOTIATE", "bool", False,
+         "`1` skips the eager cross-rank validation of the collectives "
+         "(read at every `bf.init`; also settable at run time with "
+         "`bf.set_skip_negotiate_stage`)", "BLUEFOG_SKIP_NEGOTIATE"),
+    Knob("BFT_SIMULATE_DEVICES", "int", 0,
+         "N → this host runs N ranks as processes on the CPU over gloo, even "
+         "when a GPU is present (what `bfrun --simulate N` sets); `bf.init` "
+         "raises when the ranks on this host are not N",
+         "BLUEFOG_SIMULATE_DEVICES"),
     # -- the live telemetry plane (runtime/timeseries.py, tuner.py) ---------
     Knob("BFT_TS_INTERVAL", "float", None,
          "seconds between time-series publications (`bf.ts.<rank>`); unset: "
@@ -343,6 +356,38 @@ KNOBS: Tuple[Knob, ...] = (
          "`key=value` terms (`slow_ratio`, `min_bps`, `transit_p99_ms`, "
          "`slow_for`, `straggler_for`, `dwell`, `deesc_norm`, `keep_in`)",
          "BLUEFOG_TUNE_RULES"),
+)
+
+# The JAX package's knobs that no port knob stands for, each with why.
+# ``tests/test_torch_port_knobs.py`` holds that every name of JAX's
+# ``KNOBS`` is either stood for by a knob above or listed here, never both.
+ABSENT_ON_PURPOSE: Tuple[Tuple[str, str], ...] = (
+    ("BLUEFOG_WIN_HOST_PLANE", "a deprecated alias of BLUEFOG_WIN_PLANE"),
+    ("BLUEFOG_PERF_GATE_DELAY_MS", "a hook of the JAX package's perf-gate "
+     "script"),
+    ("BLUEFOG_WIN_PLAN_MIN_MB", "the plane planner: with one rank per "
+     "process no edge is local to a controller"),
+    ("BLUEFOG_WIN_OVERLAP", "the hybrid window paths, which need two ranks "
+     "on one controller"),
+    ("BLUEFOG_WIN_SHARD_DONATE", "the hybrid window paths' buffer donation"),
+    ("BLUEFOG_FLASH_TQ", "the Pallas kernels' q tile; the CUDA kernels' "
+     "tiles are fixed"),
+    ("BLUEFOG_FLASH_TK", "the Pallas kernels' k tile; the CUDA kernels' "
+     "tiles are fixed"),
+    ("BLUEFOG_CHAOS_SEED", "the JAX package's chaos tests "
+     "(tests/test_chaos.py)"),
+    ("BLUEFOG_BENCH_INIT_TIMEOUT", "the JAX package's bench.py"),
+    ("BLUEFOG_DRYRUN_TIMEOUT", "the JAX package's multi-chip dry run "
+     "(__graft_entry__.py)"),
+    ("BLUEFOG_TB_CONFIG", "the JAX package's scripts/tune_bench.py"),
+    ("BLUEFOG_TB_SECONDS", "the JAX package's scripts/tune_bench.py"),
+    ("BLUEFOG_TB_STRAGGLER", "the JAX package's scripts/tune_bench.py"),
+    ("BLUEFOG_TB_STRAGGLE_MS", "the JAX package's scripts/tune_bench.py"),
+    ("BLUEFOG_WB_CODECS", "the JAX package's scripts/win_microbench.py"),
+    ("BLUEFOG_WB_QUICK", "the JAX package's scripts/win_microbench.py"),
+    ("BLUEFOG_WB_SHARD", "the JAX package's scripts/win_microbench.py"),
+    ("BLUEFOG_TESTS_CPU_ONLY", "the JAX package's test harness "
+     "(tests/conftest.py)"),
 )
 
 _KNOB_INDEX = {k.name: k for k in KNOBS}

@@ -29,7 +29,12 @@ hosted windows' server state before the control plane detaches, and
 ``set_topology`` refuses while windows exist (their edges are frozen).
 
 Entry points run on ``cuda`` by default. With no GPU present they raise and
-say to pass ``device="cpu"``; nothing quietly carries on on the CPU.
+say to pass ``device="cpu"``; nothing quietly carries on on the CPU. The one
+other way onto the CPU is the operator's: ``BFT_SIMULATE_DEVICES=N`` (what
+``bfrun --simulate N`` exports) makes ``init`` without a ``device`` take
+the CPU over gloo, and raise unless this host runs N ranks.
+``BFT_SKIP_NEGOTIATE`` sets the negotiate stage's skip flag at every
+``init``, as ``BLUEFOG_SKIP_NEGOTIATE`` does in the JAX package.
 """
 
 from __future__ import annotations
@@ -149,7 +154,8 @@ def init(
     ``ExponentialTwoGraph``, as in the JAX package.
 
     Args:
-      device: ``"cuda"`` (default) or ``"cpu"``; picks NCCL or gloo.
+      device: ``"cuda"`` (default; ``"cpu"`` under
+        ``BFT_SIMULATE_DEVICES``) or ``"cpu"``; picks NCCL or gloo.
       init_method: a ``torch.distributed`` URL (``file://...`` or
         ``tcp://host:port``); with ``rank`` and ``world_size``.
       local_size: ranks per machine for the hierarchical ops (default:
@@ -160,11 +166,18 @@ def init(
     st = _state
     if st.initialized:
         shutdown()
+    # ``bfrun --simulate N``: N ranks of this host on the CPU over gloo even
+    # when a card is present (NCCL refuses two ranks on one GPU); an
+    # explicit device wins, as JAX's explicit ``devices`` does
+    simulate = int(knob_env("BFT_SIMULATE_DEVICES")) if device is None else 0
+    if simulate > 0:
+        device = "cpu"
     dev = resolve_device(device)
     backend = "nccl" if dev.type == "cuda" else "gloo"
 
     if dist.is_available() and dist.is_initialized():
         owns = False
+        how = "an existing process group"
     else:
         owns = True
         if init_method is not None:
@@ -172,17 +185,34 @@ def init(
                 raise ValueError("init_method needs rank and world_size")
             dist.init_process_group(backend, init_method=init_method,
                                     rank=rank, world_size=world_size)
+            how = init_method
         elif _env_int("WORLD_SIZE") is not None and "MASTER_ADDR" in os.environ:
             dist.init_process_group(backend, init_method="env://")
+            how = (f"env:// (MASTER_ADDR {os.environ['MASTER_ADDR']}, "
+                   f"MASTER_PORT {os.environ.get('MASTER_PORT')})")
         else:
             st.store_dir = tempfile.mkdtemp(prefix="bft_store_")
             store = dist.FileStore(os.path.join(st.store_dir, "store"), 1)
             dist.init_process_group(backend, store=store, rank=0,
                                     world_size=1)
+            how = "a FileStore of one"
+    logger.debug("process group (%s) joined through %s%s", backend, how,
+                 f", simulating {simulate} rank(s) on this host"
+                 if simulate else "")
     st.owns_group = owns
     st.size = dist.get_world_size()
     st.rank = dist.get_rank()
     env_local_size = _env_int("LOCAL_WORLD_SIZE")
+    if simulate and (env_local_size or st.size) != simulate:
+        # JAX raises when fewer forced CPU devices exist than it was told
+        # to simulate (bluefog_tpu/runtime/state.py:186-192); here the
+        # ranks are this host's processes
+        if owns:
+            dist.destroy_process_group()
+        raise RuntimeError(
+            f"BFT_SIMULATE_DEVICES={simulate} but this host runs "
+            f"{env_local_size or st.size} rank(s) (world size {st.size}); "
+            f"launch with bfrun --simulate {simulate}, which starts them")
     env_local_rank = _env_int("LOCAL_RANK")
     st.local_size = int(local_size or env_local_size or st.size)
     st.local_rank = env_local_rank if env_local_rank is not None and \
@@ -222,6 +252,7 @@ def init(
     # incarnation above (the server fenced its zombie predecessor); it is
     # registered but kept out of averaging until complete_quarantine().
     _heartbeat.enter_quarantine(_cp.process_index())
+    st.skip_negotiate = bool(knob_env("BFT_SKIP_NEGOTIATE"))
     st.windows = {}
     # one plane-policy verdict per job: a mid-job environment change
     # cannot give two windows different planes

@@ -4,7 +4,8 @@
     python3 chip_smoke.py            # all phases, one card, exits 0 on success
 
 (``python3 chip_smoke.py --liveness-helper`` is the CPU peer process that
-phase 15 starts itself.)
+phase 15 starts itself; ``python3 chip_smoke.py --launch-helper`` is the
+rank phase 19 launches through the port's launcher.)
 
 Phases (each raises on failure; the script then exits non-zero):
 
@@ -282,6 +283,24 @@ Phases (each raises on failure; the script then exits non-zero):
    ``BFT_SERVE_QUEUE_MAX=2`` and a model that waits on an event (a control
    plane of its own): a flood sheds with gate ``queue_full`` and
    ``stats()['shed']`` equals the shed count. Peak memory.
+19. launch, the port's launcher and torch frontend on the main path: the
+   parent releases its tensors, then (a) runs ``python -m
+   bluefog_tpu_torch.launcher -H localhost:1 --timeline-filename <tmp>/tl_
+   --verbose -- python3 chip_smoke.py --launch-helper`` (a timeout of its
+   own): the helper checks that ``WORLD_SIZE=1``, ``RANK=0``,
+   ``MASTER_ADDR``, ``BFT_TIMELINE``, ``BFT_LOG_LEVEL`` and the job secret
+   reached it, ``bf.init()`` joins through ``env://`` over NCCL on
+   ``cuda:0``, and it trains the headline LM of phase 4 (same seed and
+   batch) from a user's loop, ``zero_grad`` / ``lm_loss`` / ``backward`` /
+   ``step`` under ``torch_frontend.DistributedTorchOptimizer`` around Adam
+   1e-3, 2 warm-up and 5 timed steps, and prints one JSON line. The child
+   must exit 0, its losses equal phase 4's bit for bit (at world 1 the
+   combine multiplies by 1.0 in f32), each kernel launch ``LAYERS`` times
+   a step, its timeline hold 7 ``STEP`` spans each with its
+   ``NEIGHBOR_ALLREDUCE``, and its stderr the debug line of the
+   ``env://`` join. Its ms/step beside phase 4's. (b) ``--simulate 2 --
+   python -m bluefog_tpu_torch.examples.torch_average_consensus``: both
+   ranks on the CPU over gloo beside the card, ``TORCH CONSENSUS OK``.
 
 The line before the last is the ``kernels`` JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -649,6 +668,16 @@ SERVE_WAIT_S = 120.0
 SERVE_SLO = "serve_p99:10s@5m,serve_avail:99@5m"
 SERVE_FAULTS = ("publish_before_copy", "corrupt_leaf_slice")
 SERVE_CLI_TIMEOUT = 180.0
+
+# phase 19, launch: the user-loop LM as the one rank of ``bfrun -H
+# localhost:1``, this script run with LAUNCH_ARG; then the torch frontend's
+# consensus example under ``bfrun --simulate LAUNCH_SIM`` on the CPU
+LAUNCH_ARG = "--launch-helper"
+LAUNCH_TIMEOUT = 300.0
+LAUNCH_SIM = 2
+LAUNCH_SIM_TIMEOUT = 120.0
+LAUNCH_RESULT = "LAUNCH_RESULT "
+LAUNCH_STAGE = "LAUNCH_STAGE "
 
 KERNELS = {
     "flash_fwd": ("bluefog_tpu_torch/parallel/csrc/flash_fwd.cu",
@@ -5223,6 +5252,261 @@ def serving(bf, fl, torch, card: str, winput_ms=None) -> dict:
     return res
 
 
+def _launch_helper_imports() -> tuple:
+    """The modules the launch helper runs: ``torch.distributed``, the
+    package, its torch frontend and the flash kernels' module."""
+    sys.path.insert(0, HERE)
+    import torch.distributed as dist
+
+    import bluefog_tpu_torch as bf
+    from bluefog_tpu_torch import torch_frontend as bft
+    from bluefog_tpu_torch.parallel import flash as fl
+
+    return dist, bf, bft, fl
+
+
+def _launch_helper_main() -> int:
+    """The helper's body: the one rank of ``bfrun -H localhost:1``. It
+    checks the environment the launcher gave it, joins through ``env://``
+    over NCCL on ``cuda:0`` and trains the headline LM from a user's loop
+    (``zero_grad``, ``lm_loss``, ``backward``, ``step``) under
+    ``DistributedTorchOptimizer`` around Adam, phase 4's seed and batch,
+    WARMUP untimed and STEPS timed steps with the launch counts set to 0
+    just before and read just after. Prints a ``LAUNCH_STAGE`` line as
+    each leg ends (the parent stamps their arrival) and one
+    ``LAUNCH_RESULT`` JSON line."""
+    def stage(name: str) -> None:
+        print(LAUNCH_STAGE + name, flush=True)
+
+    stage("started")
+    import torch
+
+    want = {"WORLD_SIZE": "1", "RANK": "0", "LOCAL_RANK": "0",
+            "LOCAL_WORLD_SIZE": "1", "BFT_LOG_LEVEL": "debug"}
+    got = {k: os.environ.get(k) for k in want}
+    if got != want:
+        raise RuntimeError(f"launch helper: environment {got}, not {want}")
+    for k in ("MASTER_ADDR", "MASTER_PORT", "BFT_TIMELINE", "BFT_CP_SECRET"):
+        if not os.environ.get(k):
+            raise RuntimeError(f"launch helper: {k} did not reach it")
+    dist, bf, bft, fl = _launch_helper_imports()
+    stage("imported")
+    bf.init()
+    stage("initialized")
+    dev = bf.runtime.state._global_state().device
+    if (str(dev), dist.get_backend(), bf.size()) != ("cuda:0", "nccl", 1):
+        raise RuntimeError(f"launch helper: joined {dev} over "
+                           f"{dist.get_backend()} at world {bf.size()}")
+    model = headline_model(bf, torch, dev, fl.flash_attention)
+    opt = bft.DistributedTorchOptimizer(
+        torch.optim.Adam(model.parameters(), lr=1e-3), model)
+    batch = headline_batch(torch, dev)
+    torch.cuda.synchronize()
+    stage("model built")
+
+    def step():
+        opt.zero_grad()
+        loss = bf.models.lm_loss(model, batch)
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fl.reset_launch_counts()
+    losses = [step() for _ in range(WARMUP)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses += [step() for _ in range(STEPS)]
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / STEPS
+    counts = dict(fl.launch_counts)
+    out = {"losses": [float(x) for x in losses], "ms_per_step": dt * 1e3,
+           "counts": counts,
+           "per_step": {k: c / (WARMUP + STEPS) for k, c in counts.items()},
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "world": bf.size(), "device": str(dev),
+           "backend": dist.get_backend()}
+    stage("trained")
+    bf.shutdown()
+    print(LAUNCH_RESULT + json.dumps(out), flush=True)
+    return 0
+
+
+def _launch_env() -> dict:
+    """This process's environment for a launcher subprocess: the package
+    beside this file importable, no launcher or port variables of its
+    own."""
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("BFT_") and k not in (
+               "WORLD_SIZE", "RANK", "LOCAL_RANK", "LOCAL_WORLD_SIZE",
+               "MASTER_ADDR", "MASTER_PORT")}
+    env["PYTHONPATH"] = HERE + os.pathsep + env.get("PYTHONPATH", "")
+    return env
+
+
+def _timed_run(cmd: list, timeout: float) -> tuple:
+    """Run ``cmd`` (a launcher) from this file's directory, stamping each
+    line of its output with the seconds since the start as it arrives;
+    returns ``(rc, [(s, stdout line)], [(s, stderr line)], wall s)``.
+    After ``timeout`` the launcher gets SIGTERM (it interrupts its ranks),
+    then SIGKILL, and this raises."""
+    import threading
+
+    t0 = time.perf_counter()
+    p = subprocess.Popen(cmd, cwd=HERE, env=_launch_env(),
+                         stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                         text=True)
+    out, err = [], []
+
+    def pump(stream, into):
+        for ln in stream:
+            into.append((time.perf_counter() - t0, ln.rstrip("\n")))
+
+    readers = [threading.Thread(target=pump, args=(p.stdout, out)),
+               threading.Thread(target=pump, args=(p.stderr, err))]
+    for t in readers:
+        t.start()
+    try:
+        rc = p.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        p.terminate()
+        try:
+            p.wait(timeout=10)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.wait()
+        raise RuntimeError(f"launch: {cmd} ran past {timeout} s")
+    finally:
+        for t in readers:
+            t.join()
+    return rc, out, err, time.perf_counter() - t0
+
+
+def _text(lines: list) -> str:
+    return "\n".join(ln for _, ln in lines)[-4000:]
+
+
+def launch_lm(torch, card: str, train_run: dict, tmp: str) -> dict:
+    """19(a): the user-loop LM through ``python -m
+    bluefog_tpu_torch.launcher -H localhost:1 --timeline-filename
+    --verbose``: the child's exit code, its losses against phase 4's bit
+    for bit (at world 1 the combine multiplies by 1.0 in f32), LAYERS
+    launches of each kernel a step, the timeline's STEP and
+    NEIGHBOR_ALLREDUCE spans, the debug log lines."""
+    import gc
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    prefix = os.path.join(tmp, "tl_")
+    rc, out, err, wall = _timed_run(
+        [sys.executable, "-m", "bluefog_tpu_torch.launcher", "-H",
+         "localhost:1", "--timeline-filename", prefix, "--verbose", "--",
+         sys.executable, os.path.join(HERE, "chip_smoke.py"), LAUNCH_ARG],
+        LAUNCH_TIMEOUT)
+    if rc != 0:
+        raise RuntimeError(f"launch: the launched LM exited with {rc}:\n"
+                           f"{_text(out)}\n{_text(err)}")
+    lines = [ln for _, ln in out if ln.startswith(LAUNCH_RESULT)]
+    if len(lines) != 1:
+        raise RuntimeError(f"launch: {len(lines)} result lines:\n"
+                           f"{_text(out)}")
+    r = json.loads(lines[0][len(LAUNCH_RESULT):])
+    # the seconds since the launcher started at which each leg ended
+    legs = {ln[len(LAUNCH_STAGE):]: t for t, ln in out
+            if ln.startswith(LAUNCH_STAGE)}
+    legs["shut down"] = next(t for t, ln in out
+                             if ln.startswith(LAUNCH_RESULT))
+    legs["exited"] = wall
+    if r["losses"] != train_run["losses"]:
+        raise RuntimeError(f"launch: user-loop losses {r['losses']} differ "
+                           f"from phase 4's {train_run['losses']}")
+    bad = {k: v for k, v in r["per_step"].items() if v != LAYERS}
+    if bad or set(r["per_step"]) != set(KERNELS):
+        raise RuntimeError(f"launch: launches a step {r['per_step']}, "
+                           f"expected {LAYERS} of each kernel")
+    with open(f"{prefix}0.json") as f:
+        events = json.load(f)
+    name = "DistributedTorchOptimizer"
+    steps = _step_spans(events, name)
+    mixes = [e for e in events if e.get("ph") == "B" and
+             e.get("cat") == name and e.get("name") == "NEIGHBOR_ALLREDUCE"]
+    inside = sum(any(b <= e["ts"] <= end for b, end in steps) for e in mixes)
+    total = WARMUP + STEPS
+    if (len(steps), len(mixes), inside) != (total, total, total):
+        raise RuntimeError(f"launch: timeline holds {len(steps)} STEP and "
+                           f"{len(mixes)} NEIGHBOR_ALLREDUCE spans "
+                           f"({inside} inside a STEP), expected {total}")
+    debug = [ln for _, ln in err if "[DEBUG]" in ln]
+    joined = [ln for ln in debug if "joined through env://" in ln]
+    init = [ln for _, ln in err
+            if "initialized: rank 0 of 1 on cuda:0 (nccl)" in ln]
+    if not joined or not init:
+        raise RuntimeError(f"launch: debug log lines missing:\n{_text(err)}")
+    log(f"launch (a) user-loop LM via bfrun -H localhost:1 ({card}): "
+        f"rc 0, wall {wall:.1f} s, world {r['world']} on {r['device']} "
+        f"({r['backend']}), ms/step {r['ms_per_step']:.3f} against "
+        f"train's {train_run['ms_per_step']:.3f} "
+        f"({r['ms_per_step'] / train_run['ms_per_step']:.4f}x), "
+        f"peak_mem_GiB {r['peak_bytes'] / 2**30:.3f}")
+    log("launch (a) losses (equal to train's bit for bit): "
+        + " ".join(f"{x:.5f}" for x in r["losses"]))
+    log(f"launch (a) launches: {r['counts']}; timeline {len(events)} "
+        f"events, {len(steps)} STEP, {len(mixes)} NEIGHBOR_ALLREDUCE; "
+        f"{len(debug)} debug lines: {joined[0].strip()}")
+    log("launch (a) legs, s since the launcher started: " + ", ".join(
+        f"{name} {t:.1f}" for name, t in legs.items()))
+    return {**r, "wall_s": wall, "legs_s": legs,
+            "timeline_events": len(events), "debug_lines": len(debug)}
+
+
+def launch_simulate(card: str) -> dict:
+    """19(b): ``--simulate LAUNCH_SIM`` runs the torch frontend's consensus
+    example as LAUNCH_SIM processes on the CPU over gloo beside the card:
+    every rank prints device cpu, rank 0 ``TORCH CONSENSUS OK``."""
+    rc, out, err, wall = _timed_run(
+        [sys.executable, "-m", "bluefog_tpu_torch.launcher", "--simulate",
+         str(LAUNCH_SIM), "--", sys.executable, "-m",
+         "bluefog_tpu_torch.examples.torch_average_consensus"],
+        LAUNCH_SIM_TIMEOUT)
+    ranks = sorted(ln for _, ln in out if ln.startswith("rank "))
+    want = [f"rank {r} of {LAUNCH_SIM} on device cpu"
+            for r in range(LAUNCH_SIM)]
+    done = [t for t, ln in out if ln == "TORCH CONSENSUS OK"]
+    if rc != 0 or ranks != want or not done:
+        raise RuntimeError(f"launch: --simulate {LAUNCH_SIM} exited with "
+                           f"{rc}, ranks {ranks}:\n{_text(out)}\n"
+                           f"{_text(err)}")
+    dev_line = [ln for _, ln in out if ln.startswith("max deviation")]
+    # the seconds since the launcher started: every rank initialized, the
+    # rounds done, every process gone
+    legs = {"initialized": max(t for t, ln in out if ln.startswith("rank ")),
+            "consensus": done[0], "exited": wall}
+    log(f"launch (b) --simulate {LAUNCH_SIM} beside the card ({card}): "
+        f"rc 0, wall {wall:.1f} s, {'; '.join(ranks)}; "
+        f"{dev_line[0] if dev_line else ''}; TORCH CONSENSUS OK")
+    log("launch (b) legs, s since the launcher started: " + ", ".join(
+        f"{name} {t:.1f}" for name, t in legs.items()))
+    return {"wall_s": wall, "legs_s": legs, "ranks": ranks}
+
+
+def launch(torch, card: str, train_run: dict) -> dict:
+    """Phase 19: the port's launcher on the card's machine."""
+    import shutil
+
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="bft_launch_")
+    try:
+        out = {"lm": launch_lm(torch, card, train_run, tmp),
+               "simulate": launch_simulate(card)}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"launch: phase wall {out['wall_s']:.1f} s")
+    return out
+
+
 def max_abs_errs(fl, torch, dev, B, S, H, D) -> dict:
     """Each kernel's max |kernel - plain| at the main path's shape.
 
@@ -5373,6 +5657,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     serve = serving(bf, fl, torch, card, winopt["collective"][
         "DistributedWinPutOptimizer"]["ms_per_step"])
+    torch.cuda.empty_cache()
+    launched = launch(torch, card, run)
 
     short = {"DistributedWinPutOptimizer": "win-put",
              "DistributedPullGetOptimizer": "pull-get",
@@ -5409,7 +5695,8 @@ def main() -> int:
                    for c, r in winopt["sharded"].items()},
                 **{f"hosted {short[c]} LM, S={WINOPT_SHARD}":
                    r["counts"][name] for c, r in winopt["runs"].items()},
-                "serve LM": serve["serve_counts"][name]},
+                "serve LM": serve["serve_counts"][name],
+                "user-loop LM via bfrun": launched["lm"]["counts"][name]},
         })
     os.makedirs(os.path.dirname(OUT), exist_ok=True)
     with open(OUT, "w") as f:
@@ -5419,7 +5706,8 @@ def main() -> int:
                    "moe": moe, "experts": experts, "parallel": par,
                    "vision": vision, "observability": obs,
                    "wire": wire_run, "liveness": live, "windows": win,
-                   "window_optimizers": winopt, "serving": serve},
+                   "window_optimizers": winopt, "serving": serve,
+                   "launch": launched},
                   f, indent=1)
     log(f"wall: {time.perf_counter() - t_start:.1f} s after the card check")
     log(json.dumps({"kernels": kernels}))
@@ -5432,4 +5720,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:] == [HELPER_ARG]:
         sys.exit(_helper_main())
+    if sys.argv[1:] == [LAUNCH_ARG]:
+        sys.exit(_launch_helper_main())
     sys.exit(main())

@@ -1060,6 +1060,7 @@ def main() -> None:
     import torch
 
     import bluefog_tpu_torch as bf
+    from _torch_port_frontend_child import frontend
     from _torch_port_win_child import win_hosted, win_ops
     from _torch_port_winopt_child import (winopt_coll, winopt_hosted,
                                           winopt_kill)
@@ -1080,7 +1081,7 @@ def main() -> None:
            "topo_check": _topo_check, "sidecar_epoch": _sidecar_epoch,
            "win_ops": win_ops, "win_hosted": win_hosted,
            "winopt_coll": winopt_coll, "winopt_hosted": winopt_hosted,
-           "winopt_kill": winopt_kill}[mode](
+           "winopt_kill": winopt_kill, "frontend": frontend}[mode](
                bf, torch, rank, world, inp)
     bf.barrier()
     bf.shutdown()

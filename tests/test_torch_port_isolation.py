@@ -48,6 +48,46 @@ def test_port_imports_no_jax():
     assert res.stdout.startswith("clean")
 
 
+# The launcher's launch paths run (exec with a checked --chaos spec and the
+# torchrun environment, --simulate, the fan-out with its shard servers and
+# --elastic) and chip_smoke's launch helper imports what it runs; then no
+# module of JAX or of the JAX package is loaded. The programs launched are
+# a bare interpreter, so only the launcher's own imports count.
+_LAUNCH_PROBE = """
+import os, sys
+import bluefog_tpu_torch.torch_frontend
+import bluefog_tpu_torch.examples.torch_average_consensus
+from bluefog_tpu_torch import launcher
+os.execvpe = lambda *a: None
+assert launcher.main(["--chaos", "drop_after=3", "-np", "2", "--coordinator",
+                      "127.0.0.1:1", "--process-id", "1", "--", "prog"]) is None
+noop = [sys.executable, "-c", "pass"]
+assert launcher.main(["--simulate", "2", "--"] + noop) == 0
+assert launcher.main(["-H", "localhost:2", "--cp-shards", "2", "--elastic=1",
+                      "--"] + noop) == 0
+import chip_smoke
+chip_smoke._launch_helper_imports()
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
+                                    "ml_dtypes", "bluefog_tpu"))
+assert not bad, bad
+print("clean")
+"""
+
+
+def test_launcher_launch_paths_and_launch_helper_import_no_jax(tmp_path):
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("BFT_", "MASTER_"))
+           and k not in ("WORLD_SIZE", "RANK")}
+    env.update(PYTHONPATH=_REPO, OMP_NUM_THREADS="1")
+    res = subprocess.run([sys.executable, "-c", _LAUNCH_PROBE], cwd=tmp_path,
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert res.stdout.splitlines()[-1] == "clean"
+    assert "control plane sharded over 2 server(s)" in res.stderr
+
+
 def test_chip_smoke_binds_each_top_level_name_once():
     """A second ``def`` of a name in ``chip_smoke.py`` silently replaces the
     first, and the earlier phase that calls it fails only on the card."""

@@ -161,3 +161,18 @@ def test_knob_stands_for_a_jax_knob(name, monkeypatch):
         assert config.knob_env(name) == 7
     with pytest.raises(KeyError):
         config.knob_env("BFT_UNDECLARED")
+
+
+def test_every_jax_knob_is_stood_for_or_absent_on_purpose():
+    """Each name of the JAX package's ``KNOBS`` is either stood for by a
+    port knob or listed in the port's ``ABSENT_ON_PURPOSE`` with why, and
+    none is both: a knob JAX adds must be ported or recorded."""
+    jax_names = {k.name for k in jax_config.KNOBS}
+    stood_for = {k.jax_name for k in config.KNOBS}
+    absent = [name for name, _ in config.ABSENT_ON_PURPOSE]
+    assert len(absent) == len(set(absent))
+    assert all(why for _, why in config.ABSENT_ON_PURPOSE)
+    assert stood_for & set(absent) == set()
+    assert stood_for | set(absent) == jax_names
+    assert len(jax_names) == 95
+    assert (len(stood_for), len(absent)) == (77, 18)

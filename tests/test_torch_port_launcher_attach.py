@@ -21,8 +21,8 @@
   snapshot and exits 0;
 * ``--serve --once`` exits 1 on a control plane with no snapshot, the
   address falls back to ``MASTER_ADDR`` and ``MASTER_PORT + 17``, and a
-  command line that asks to launch a program stops with the ROADMAP item
-  that will port it.
+  command line that asks to launch a program launches it (the launch modes
+  themselves: ``tests/test_torch_port_launcher_launch.py``).
 """
 
 import contextlib
@@ -291,12 +291,37 @@ def test_cp_address_resolution(monkeypatch, capsys):
     assert launcher._cp_address(args, "--status") == [("h3", 3)]
 
 
-@pytest.mark.parametrize("argv", [
-    ["python", "train.py"],
-    ["-np", "2", "--coordinator", "h:1", "--process-id", "0", "python", "t"],
-    ["--simulate", "4", "--elastic", "--", "python", "t.py"],
+@pytest.mark.parametrize("argv,want", [
+    (["python", "train.py"], [["python", "train.py"]]),
+    (["-np", "2", "--coordinator", "h:1", "--process-id", "0", "python",
+      "t"], [["python", "t"]]),
+    (["--simulate", "4", "--elastic", "--", "python", "t.py"],
+     [["python", "t.py"]] * 4),
 ])
-def test_launching_a_program_names_the_roadmap_item(argv):
-    with pytest.raises(SystemExit, match="Queue 1, item 9.*torchrun"):
-        launcher.main(argv)
+def test_launching_a_program_launches(argv, want, monkeypatch):
+    """A command line that asks to launch a program launches it: exec mode
+    (``os.execvpe``), with ``-np`` as rank 0 of 2, or ``--simulate 4``
+    under ``--elastic`` as 4 supervised processes (``subprocess.Popen``);
+    both monkeypatched to record what would start."""
+    started = []
+
+    class Done:
+        def poll(self):
+            return 0
+
+        def wait(self, timeout=None):
+            return 0
+
+    monkeypatch.setattr(os, "execvpe", lambda prog, args, env:
+                        started.append((args, env)))
+    monkeypatch.setattr(launcher.subprocess, "Popen", lambda cmd, env:
+                        started.append((cmd, env)) or Done())
+    rc = launcher.main(argv)
+    assert [cmd for cmd, _ in started] == want
+    if argv[0] == "-np":
+        assert [(e["MASTER_ADDR"], e["MASTER_PORT"], e["WORLD_SIZE"],
+                 e["RANK"]) for _, e in started] == [("h", "1", "2", "0")]
+    if argv[0] == "--simulate":
+        assert rc == 0
+        assert [e["RANK"] for _, e in started] == ["0", "1", "2", "3"]
     assert launcher.main([]) == 1
