@@ -337,17 +337,54 @@ def _port_free(port: int) -> bool:
     return True
 
 
+def _hold_port(port: int) -> Optional[socket.socket]:
+    """A socket bound to ``port`` with ``SO_REUSEADDR`` that never listens,
+    or None when another socket holds the port. While it is open the kernel
+    gives the port to no other process (neither to a ``bind`` to port 0 nor
+    to a plain ``bind``), and the job's own listeners, torch's store and the
+    control-plane server, which set ``SO_REUSEADDR`` too, still bind it."""
+    if not _port_free(port):
+        return None
+    s = socket.socket()
+    s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+    try:
+        s.bind(("", port))
+    except OSError:
+        s.close()
+        return None
+    return s
+
+
+# the ports this launcher picked for its job, held until the job ends
+_held_ports: List[socket.socket] = []
+
+
+def _release_ports() -> None:
+    while _held_ports:
+        _held_ports.pop().close()
+
+
 def _free_master_port(cp_ports: int = 1) -> int:
     """A free ``MASTER_PORT`` whose control-plane ports (``MASTER_PORT +
     17`` and the ``cp_ports - 1`` above it, where rank 0 serves) are free
-    too, so the job's rendezvous and its control plane cannot collide."""
+    too, so the job's rendezvous and its control plane cannot collide.
+    The ports stay held (:func:`_hold_port`) until :func:`_release_ports`:
+    rank 0 binds them seconds later, after its imports, and a port only
+    probed free could meanwhile go to another process's server."""
     from .runtime.control_plane import PORT_OFFSET
 
     for _ in range(64):
         port = _free_port()
+        if port + PORT_OFFSET + cp_ports - 1 > 65535:
+            continue
         cp = range(port + PORT_OFFSET, port + PORT_OFFSET + cp_ports)
-        if cp[-1] <= 65535 and all(_port_free(p) for p in cp):
+        held = [_hold_port(p) for p in (port, *cp)]
+        if all(held):
+            _held_ports.extend(held)
             return port
+        for h in held:
+            if h is not None:
+                h.close()
     raise RuntimeError("no free port P with P + 17 free as well")
 
 
@@ -688,6 +725,7 @@ def _fanout(args) -> int:
         return _run_job(total, spawn, args, base_inc)
     finally:
         _stop_shard_servers(shard_procs)
+        _release_ports()
 
 
 def _split_address(address: str) -> Tuple[str, int]:
@@ -723,7 +761,10 @@ def _simulate(args, env: dict) -> int:
             **env, "RANK": str(pid * n + j), "LOCAL_RANK": str(j),
             "BFT_INCARNATION": str(inc)})
 
-    return _run_job(n, spawn, args, _base_incarnation())
+    try:
+        return _run_job(n, spawn, args, _base_incarnation())
+    finally:
+        _release_ports()
 
 
 def _cp_address(args, what: str):

@@ -301,6 +301,29 @@ Phases (each raises on failure; the script then exits non-zero):
    ``env://`` join. Its ms/step beside phase 4's. (b) ``--simulate 2 --
    python -m bluefog_tpu_torch.examples.torch_average_consensus``: both
    ranks on the CPU over gloo beside the card, ``TORCH CONSENSUS OK``.
+20. scaling, the collective record of the real steps (``scaling.py``):
+   the fake process-group backend must serve CUDA. (a) For n in SCALE_NS,
+   this process as rank SCALE_RANK of a fake world of n (SCALE_LOCAL
+   ranks a machine) builds the headline LM of phase 4 on the card; for
+   each of ``scaling.KINDS`` the seeded parameters are reloaded from a
+   device copy and the production optimizer around Adam 1e-3
+   (``scaling.train_step_optimizer``) takes SCALE_STEPS steps under
+   ``record_collectives`` and one more unrecorded. Each recorded step must
+   dispatch exactly JAX's collectives for the kind (static Expo-2
+   ceil(log2 n) P2P rounds, one-peer 1, hierarchical one all-reduce over
+   SCALE_LOCAL ranks and ceil(log2 n/SCALE_LOCAL) rounds over the machine
+   group, ZeRO-1 one reduce-scatter and one all-gather, the allreduce
+   kinds one all-reduce; no shape check), each round and all-reduce
+   handing in the parameters' 1,342,251,008 B, all on the card; the first
+   loss must equal phase 4's bit for bit and each kernel launch LAYERS
+   times a step. Prints each step's ms (CUDA events) beside phase 4's and
+   the peak memory. (b) The flash ring's forward at B=1 H=16 S=8192 D=128
+   as rank SCALE_RANK of a fake ring of SCALE_AUX_N: two sends a ring
+   step of one [1, S/n, 16, 128] bf16 block each, K1 once a ring step.
+   (c) The EP MoE LM's loss and gradient at the headline width (blocks 1
+   and 3 MoE, one expert per rank, flash attention) as rank SCALE_RANK of
+   a fake SCALE_AUX_N: 4 all-to-alls a MoE layer and each chip's payload,
+   LAYERS launches of each kernel. The record is one JSON line.
 
 The line before the last is the ``kernels`` JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -309,6 +332,7 @@ package beside this file, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -678,6 +702,18 @@ LAUNCH_SIM = 2
 LAUNCH_SIM_TIMEOUT = 120.0
 LAUNCH_RESULT = "LAUNCH_RESULT "
 LAUNCH_STAGE = "LAUNCH_STAGE "
+# Phase 20 (scaling): the headline LM's real step under each kind as rank
+# SCALE_RANK of fake worlds of SCALE_NS (SCALE_LOCAL ranks a machine for
+# the hierarchical kind), SCALE_STEPS recorded steps each; the flash ring's
+# forward and the EP LM's gradient as rank SCALE_RANK of a fake SCALE_AUX_N;
+# after the recorded steps, one more step unrecorded, timed alone. The
+# phase runs on SCALE_DEVICE, the card (a CPU rehearsal sets "cpu")
+SCALE_NS = (8, 128)
+SCALE_RANK = 5
+SCALE_LOCAL = 4
+SCALE_STEPS = 2
+SCALE_AUX_N = 8
+SCALE_DEVICE = "cuda"
 
 KERNELS = {
     "flash_fwd": ("bluefog_tpu_torch/parallel/csrc/flash_fwd.cu",
@@ -5507,6 +5543,243 @@ def launch(torch, card: str, train_run: dict) -> dict:
     return out
 
 
+def _scaling_expected(kind: str, n: int) -> dict:
+    """The collectives one step of ``kind`` must dispatch at n, by class
+    (JAX's counts on the lowered step, ``tests/test_scaling.py``)."""
+    want = dict.fromkeys(("collective_permute", "all_reduce", "all_gather",
+                          "reduce_scatter", "all_to_all", "negotiate"), 0)
+    if kind in ("allreduce", "gradient_allreduce"):
+        want["all_reduce"] = 1
+    elif kind == "neighbor_static_expo2":
+        want["collective_permute"] = math.ceil(math.log2(n))
+    elif kind == "neighbor_dynamic_onepeer":
+        want["collective_permute"] = 1
+    elif kind == "hierarchical":
+        want["all_reduce"] = 1
+        want["collective_permute"] = math.ceil(math.log2(n // SCALE_LOCAL))
+    else:
+        want["reduce_scatter"] = want["all_gather"] = 1
+    return want
+
+
+def _scaling_check(kind: str, n: int, ops: list, p_bytes: int) -> None:
+    """One step's record against ``_scaling_expected``: every P2P round
+    and every all-reduce hands in the P bytes of the f32 parameters,
+    ZeRO-1's reduce-scatter its buffer of n shards of ceil(P/4n) elements
+    (P itself where n divides the parameters) and its all-gather one
+    shard, each over the group it belongs to, all on the card."""
+    from bluefog_tpu_torch import scaling
+
+    got = scaling.collective_counts(ops)
+    if got != _scaling_expected(kind, n):
+        raise RuntimeError(f"scaling (a) {kind} n={n}: dispatched {got}, "
+                           f"expected {_scaling_expected(kind, n)}")
+    m = n // SCALE_LOCAL
+    shard = -(-p_bytes // (4 * n)) * 4
+    for c in ops:
+        size = {"all_reduce": SCALE_LOCAL, "collective_permute": m,
+                "recv": m}.get(c.cls, n) if kind == "hierarchical" else n
+        nbytes = {"all_gather": shard, "reduce_scatter": shard * n}.get(
+            c.cls, p_bytes)
+        if c.cls == "recv":
+            nbytes = c.bytes_in          # a receive buffer, handed nothing
+        if (c.group_size, c.bytes_in, c.device) != (size, nbytes,
+                                                    SCALE_DEVICE):
+            raise RuntimeError(
+                f"scaling (a) {kind} n={n}: {c.op} handed {c.bytes_in} B "
+                f"on {c.device} over a group of {c.group_size}, expected "
+                f"{nbytes} B on {SCALE_DEVICE} over {size}")
+
+
+def scaling_lm(bf, fl, torch, card: str, train_run: dict) -> list:
+    """20(a): the headline LM's real step under each of ``scaling.KINDS``
+    as rank SCALE_RANK of fake worlds of SCALE_NS on the card, the seeded
+    parameters reloaded from a device copy before each kind (the fake
+    transport leaves the received buffers as the allocator left them, so
+    the parameters after a step mean nothing): SCALE_STEPS recorded steps,
+    each held to ``_scaling_check``, then one step unrecorded; the first
+    loss equal to train's bit for bit (the same seeded parameters and
+    batch, before any exchange); LAYERS launches of each kernel a step; ms of each step
+    (CUDA events: the recorded ones hold the recorder's host cost, the
+    last one not) and the peak memory."""
+    import gc
+
+    from bluefog_tpu_torch import scaling
+
+    rows = []
+    for n in SCALE_NS:
+        with scaling.fake_world(n, SCALE_RANK, SCALE_DEVICE,
+                                local_size=SCALE_LOCAL):
+            dev = bf.runtime.state._global_state().device
+            model = headline_model(bf, torch, dev, fl.flash_attention)
+            seeded = [p.detach().clone() for p in model.parameters()]
+            p_bytes = sum(p.numel() * p.element_size() for p in seeded)
+            batch = headline_batch(torch, dev)
+            for kind in scaling.KINDS:
+                with torch.no_grad():
+                    for p, s in zip(model.parameters(), seeded):
+                        p.data = s.clone()
+                opt = scaling.train_step_optimizer(
+                    kind, torch.optim.Adam(model.parameters(), lr=1e-3),
+                    model, bf.models.lm_loss)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                fl.reset_launch_counts()
+                ms, losses, recs = [], [], []
+                for i in range(SCALE_STEPS + 1):
+                    t0 = torch.cuda.Event(enable_timing=True)
+                    t1 = torch.cuda.Event(enable_timing=True)
+                    with scaling.record_collectives() if i < SCALE_STEPS \
+                            else contextlib.nullcontext() as rec:
+                        t0.record()
+                        loss = opt.step(batch)["loss"]
+                        t1.record()
+                    t1.synchronize()
+                    ms.append(t0.elapsed_time(t1))
+                    losses.append(float(loss))
+                    if rec is not None:
+                        recs.append(rec.ops)
+                counts = dict(fl.launch_counts)
+                peak = torch.cuda.max_memory_allocated()
+                del opt
+                for ops in recs:
+                    _scaling_check(kind, n, ops, p_bytes)
+                if losses[0] != train_run["losses"][0]:
+                    raise RuntimeError(
+                        f"scaling (a) {kind} n={n}: first loss "
+                        f"{losses[0]}, not train's {train_run['losses'][0]} "
+                        f"(the same seeded parameters and batch)")
+                if counts != dict.fromkeys(KERNELS,
+                                           LAYERS * (SCALE_STEPS + 1)):
+                    raise RuntimeError(f"scaling (a) {kind} n={n}: "
+                                       f"launches {counts}, expected "
+                                       f"{LAYERS} of each kernel a step")
+                c = scaling.collective_counts(recs[0])
+                b = scaling.collective_bytes(recs[0])
+                rows.append({"kind": kind, "n": n, "counts": c, "bytes": b,
+                             "p_bytes": p_bytes, "ms": ms,
+                             "first_loss": losses[0], "peak_bytes": peak,
+                             "launches": counts})
+                log(f"scaling (a) {kind} n={n} rank {SCALE_RANK} ({card}): "
+                    f"{c['collective_permute']} rounds, {c['all_reduce']} "
+                    f"all_reduce, {c['reduce_scatter']} reduce_scatter, "
+                    f"{c['all_gather']} all_gather, {c['negotiate']} "
+                    f"negotiate a step; bytes in {b}; ms/step recorded "
+                    + " ".join(f"{t:.3f}" for t in ms[:-1])
+                    + f", unrecorded {ms[-1]:.3f} (train "
+                    f"{train_run['ms_per_step']:.3f}); first "
+                    f"loss {losses[0]:.5f}; peak_mem_GiB "
+                    f"{peak / 2**30:.3f}; launches {counts}")
+            del model, seeded, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rows
+
+
+def scaling_ring(fl, torch, card: str) -> dict:
+    """20(b): the flash ring's forward (``record_cp_forward``) at the
+    headline attention width as rank SCALE_RANK of a fake ring of
+    SCALE_AUX_N: two sends a ring step, each one [1, S/n, 16, 128] bf16
+    block, no other collective, K1 once a ring step."""
+    from bluefog_tpu_torch import scaling
+
+    n, H, D = SCALE_AUX_N, 16, 128
+    torch.cuda.synchronize()
+    fl.reset_launch_counts()
+    ops, steps = scaling.record_cp_forward(
+        n, rank=SCALE_RANK, seq=SEQ, heads=H, d_head=D, device=SCALE_DEVICE)
+    torch.cuda.synchronize()
+    counts = dict(fl.launch_counts)
+    c, b = scaling.collective_counts(ops), scaling.collective_bytes(ops)
+    block = 2 * (SEQ // n) * H * D * 2
+    want = {"collective_permute": 2 * steps, "all_reduce": 0,
+            "all_gather": 0, "reduce_scatter": 0, "all_to_all": 0,
+            "negotiate": 0}
+    if c != want or b["collective_permute"] != block * steps or any(
+            (x.group_size, x.device) != (n, SCALE_DEVICE) for x in ops):
+        raise RuntimeError(f"scaling (b): ring forward dispatched {c}, "
+                           f"{b['collective_permute']} B, expected {want}, "
+                           f"{block * steps} B, all on {SCALE_DEVICE} over "
+                           f"{n}")
+    if counts != {"flash_fwd": n, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}:
+        raise RuntimeError(f"scaling (b): launches {counts}, expected K1 "
+                           f"{n} times")
+    log(f"scaling (b) flash ring forward, rank {SCALE_RANK} of a fake "
+        f"{n} ({card}): {c['collective_permute'] / steps:g} sends a ring "
+        f"step over {steps} steps, {b['collective_permute'] // steps} B a "
+        f"step (2 blocks of [1, {SEQ // n}, {H}, {D}] bf16); launches "
+        f"{counts}")
+    return {"n": n, "steps": steps, "counts": c, "bytes": b,
+            "bytes_per_step": b["collective_permute"] // steps,
+            "launches": counts}
+
+
+def scaling_ep(fl, torch, card: str) -> dict:
+    """20(c): the EP MoE LM's loss and gradient (``record_moe_lm_grad``)
+    at the headline width, blocks 1 and 3 MoE, one expert per rank, flash
+    attention, as rank SCALE_RANK of a fake SCALE_AUX_N: 4 all-to-alls a
+    MoE layer, no P2P round, no reduce-scatter or all-gather beyond the
+    batch check's, LAYERS launches of each kernel."""
+    from bluefog_tpu_torch import scaling
+
+    n = SCALE_AUX_N
+    moe_layers = LAYERS // 2
+    torch.cuda.synchronize()
+    fl.reset_launch_counts()
+    ops = scaling.record_moe_lm_grad(
+        n, rank=SCALE_RANK, n_layers=LAYERS, moe_every=2, seq=SEQ,
+        d_model=2048, d_ff=8192, vocab=32768, num_heads=16,
+        dtype=torch.bfloat16, attn_fn=fl.flash_attention,
+        device=SCALE_DEVICE)
+    torch.cuda.synchronize()
+    counts = dict(fl.launch_counts)
+    c, b = scaling.collective_counts(ops), scaling.collective_bytes(ops)
+    a2a = [x for x in ops if x.cls == "all_to_all"]
+    if (c["all_to_all"], c["collective_permute"], c["reduce_scatter"],
+            c["all_gather"]) != (4 * moe_layers, 0, 0, 0) or any(
+            (x.group_size, x.device) != (n, SCALE_DEVICE) for x in a2a):
+        raise RuntimeError(f"scaling (c): EP LM gradient dispatched {c}, "
+                           f"expected {4 * moe_layers} all_to_all on "
+                           f"{SCALE_DEVICE} over {n} and no round")
+    if counts != dict.fromkeys(KERNELS, LAYERS):
+        raise RuntimeError(f"scaling (c): launches {counts}, expected "
+                           f"{LAYERS} of each kernel")
+    log(f"scaling (c) EP MoE LM gradient, rank {SCALE_RANK} of a fake {n} "
+        f"({card}): {c['all_to_all']} all_to_all ({moe_layers} MoE "
+        f"layers), {c['all_reduce']} all_reduce, {c['negotiate']} "
+        f"negotiate; each chip's all_to_all payload "
+        f"{b['all_to_all'] / 2**20:.1f} MiB; launches {counts}")
+    return {"n": n, "counts": c, "bytes": b, "launches": counts}
+
+
+def scaling_phase(bf, fl, torch, card: str, train_run: dict) -> dict:
+    """Phase 20: the collective record of the real steps on the card."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed import fake_pg  # noqa: F401
+
+    caps = dist.Backend.backend_capability.get("fake", [])
+    if "cuda" not in caps:
+        raise RuntimeError(f"this torch's fake process-group backend "
+                           f"serves {caps}, not cuda: phase 20 records on "
+                           f"the card only")
+    t0 = time.perf_counter()
+    out = {"lm": scaling_lm(bf, fl, torch, card, train_run),
+           "ring": scaling_ring(fl, torch, card),
+           "ep": scaling_ep(fl, torch, card)}
+    out["wall_s"] = time.perf_counter() - t0
+    log(json.dumps({"scaling": {
+        "card": card, "rank": SCALE_RANK,
+        "lm": [{k: r[k] for k in ("kind", "n", "counts", "bytes", "ms",
+                                  "peak_bytes")} for r in out["lm"]],
+        "p_bytes": out["lm"][0]["p_bytes"],
+        "ring": {k: out["ring"][k] for k in ("n", "steps", "counts",
+                                             "bytes_per_step")},
+        "ep": {k: out["ep"][k] for k in ("n", "counts", "bytes")},
+        "wall_s": out["wall_s"]}}))
+    log(f"scaling: phase wall {out['wall_s']:.1f} s")
+    return out
+
+
 def max_abs_errs(fl, torch, dev, B, S, H, D) -> dict:
     """Each kernel's max |kernel - plain| at the main path's shape.
 
@@ -5659,6 +5932,8 @@ def main() -> int:
         "DistributedWinPutOptimizer"]["ms_per_step"])
     torch.cuda.empty_cache()
     launched = launch(torch, card, run)
+    torch.cuda.empty_cache()
+    scaled = scaling_phase(bf, fl, torch, card, run)
 
     short = {"DistributedWinPutOptimizer": "win-put",
              "DistributedPullGetOptimizer": "pull-get",
@@ -5696,7 +5971,13 @@ def main() -> int:
                 **{f"hosted {short[c]} LM, S={WINOPT_SHARD}":
                    r["counts"][name] for c, r in winopt["runs"].items()},
                 "serve LM": serve["serve_counts"][name],
-                "user-loop LM via bfrun": launched["lm"]["counts"][name]},
+                "user-loop LM via bfrun": launched["lm"]["counts"][name],
+                "scaling LM, fake 8 and 128": sum(
+                    r["launches"][name] for r in scaled["lm"]),
+                f"scaling ring forward, fake {SCALE_AUX_N}": scaled["ring"][
+                    "launches"][name],
+                f"scaling EP LM gradient, fake {SCALE_AUX_N}": scaled["ep"][
+                    "launches"][name]},
         })
     os.makedirs(os.path.dirname(OUT), exist_ok=True)
     with open(OUT, "w") as f:
@@ -5707,7 +5988,7 @@ def main() -> int:
                    "vision": vision, "observability": obs,
                    "wire": wire_run, "liveness": live, "windows": win,
                    "window_optimizers": winopt, "serving": serve,
-                   "launch": launched},
+                   "launch": launched, "scaling": scaled},
                   f, indent=1)
     log(f"wall: {time.perf_counter() - t_start:.1f} s after the card check")
     log(json.dumps({"kernels": kernels}))

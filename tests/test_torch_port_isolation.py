@@ -8,6 +8,7 @@ unless ``device="cpu"`` is passed. The port's public names are names of
 the JAX package too: it adds no feature the JAX package lacks.
 """
 
+import importlib.util
 import json
 import os
 import subprocess
@@ -20,18 +21,23 @@ import bluefog_tpu
 import bluefog_tpu.parallel
 import bluefog_tpu_torch as bft
 from bluefog_tpu_torch import bench, lm_bench
-from bluefog_tpu_torch import launcher
+from bluefog_tpu_torch import launcher, scaling
 from bluefog_tpu_torch.examples import (average_consensus, benchmark,
-                                        long_context_lm, mnist, moe,
-                                        optimization, resnet, serving)
+                                        keras_mnist, long_context_lm, mnist,
+                                        moe, optimization, resnet, serving)
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
+# The Keras frontend is left out of the walk: keras itself imports JAX
+# where JAX is installed. Its own checks are the static scan and the child
+# with JAX blocked below.
 _PROBE = """
 import importlib, pkgutil, sys
 import bluefog_tpu_torch, chip_smoke
+sys.modules["bluefog_tpu_torch.keras"] = None
 for m in pkgutil.walk_packages(bluefog_tpu_torch.__path__, "bluefog_tpu_torch."):
-    importlib.import_module(m.name)
+    if m.name != "bluefog_tpu_torch.keras":
+        importlib.import_module(m.name)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
                                     "ml_dtypes", "bluefog_tpu"))
@@ -73,6 +79,85 @@ bad = sorted(m for m in sys.modules
 assert not bad, bad
 print("clean")
 """
+
+
+_JAX_ROOTS = ("jax", "jaxlib", "flax", "optax", "bluefog_tpu")
+
+
+def _imported_roots(path: str) -> set:
+    """The top-level names of the modules ``path`` imports (absolute
+    imports; a relative import stays inside the port)."""
+    import ast
+
+    with open(path, encoding="utf-8") as f:
+        tree = ast.parse(f.read())
+    roots = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+@pytest.mark.parametrize("rel", [
+    "bluefog_tpu_torch/scaling.py", "bluefog_tpu_torch/keras/__init__.py",
+    "bluefog_tpu_torch/examples/keras_mnist.py"])
+def test_last_slice_modules_import_no_jax(rel):
+    """The scaling module, the Keras frontend and its example import
+    neither JAX, flax, optax nor the JAX package, and the package's
+    ``__init__`` leaves the Keras frontend (and keras) alone."""
+    assert _imported_roots(os.path.join(_REPO, rel)) & set(_JAX_ROOTS) == \
+        set()
+    init = os.path.join(_REPO, "bluefog_tpu_torch", "__init__.py")
+    assert "keras" not in _imported_roots(init) | _init_names(init)
+
+
+_KERAS_PROBE = """
+import sys
+if sys.argv[1] == "block":
+    for m in ("jax", "jaxlib", "flax", "optax"):
+        sys.modules[m] = None
+try:
+    import bluefog_tpu_torch.keras as bfk
+except ImportError as exc:
+    print("refused:", exc)
+    raise SystemExit(0)
+bad = sorted(m for m in sys.modules if m.split(".")[0] in
+             ("jax", "jaxlib", "flax", "optax", "bluefog_tpu")
+             and sys.modules[m] is not None)
+assert not bad, bad
+print("clean", sorted(bfk.__all__))
+"""
+
+
+@pytest.mark.parametrize("backend", ["torch", "numpy"])
+def test_keras_frontend_imports_with_jax_blocked(backend):
+    """On the torch backend the frontend imports with JAX blocked and loads
+    nothing of JAX (keras brings ``ml_dtypes``, which the card's machine,
+    without keras, never loads); on any other backend it refuses with
+    ImportError, as JAX's does off the jax backend (keras's numpy backend
+    needs JAX, so that child runs unblocked)."""
+    if importlib.util.find_spec("keras") is None:
+        pytest.skip("keras is not installed")
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("KERAS_")}
+    env.update(PYTHONPATH=_REPO, KERAS_BACKEND=backend,
+               TF_CPP_MIN_LOG_LEVEL="3")
+    block = "block" if backend == "torch" else "open"
+    res = subprocess.run([sys.executable, "-c", _KERAS_PROBE, block],
+                         cwd=_REPO,
+                         env=env, capture_output=True, text=True,
+                         timeout=180)
+    assert res.returncode == 0, res.stdout + res.stderr
+    last = res.stdout.splitlines()[-1]
+    if backend == "torch":
+        assert last == "clean ['DistributedOptimizer', " \
+            "'broadcast_variables']"
+    else:
+        assert last == ("refused: bluefog_tpu_torch.keras needs the Keras "
+                        "torch backend; set KERAS_BACKEND=torch before "
+                        "importing keras (got 'numpy')")
 
 
 def test_launcher_launch_paths_and_launch_helper_import_no_jax(tmp_path):
@@ -132,6 +217,12 @@ _ENTRIES = {
     "serving.main": lambda: serving.main([]),
     "launcher --serve": lambda: launcher.main(
         ["--serve", "--cp", "127.0.0.1:1"]),
+    "keras_mnist.main": lambda: keras_mnist.main([]),
+    "scaling.record_train_step": lambda: scaling.record_train_step(
+        "allreduce", 8),
+    "scaling.record_cp_forward": lambda: scaling.record_cp_forward(8),
+    "scaling.record_moe_lm_grad": lambda: scaling.record_moe_lm_grad(8),
+    "scaling.main": lambda: scaling.main(["--out", os.devnull]),
 }
 
 
