@@ -60,7 +60,7 @@ from .runtime.native import (PeerLostError, QuorumLostError,
                              StaleIncarnationError)
 
 # timeline (chrome tracing; ``timeline_context`` also names a
-# torch.profiler range)
+# torch.profiler range while a profiler runs)
 from .runtime.timeline import (
     start_timeline,
     stop_timeline,

@@ -37,7 +37,7 @@ from ..runtime import control_plane as _cp
 from ..runtime import handles as _handles
 from ..runtime.config import knob_env
 from ..runtime.state import _global_state
-from ..runtime.timeline import timeline_context
+from ..runtime.timeline import count, timeline_context
 from .plan import CombinePlan, _acc_dtype, spmd_combine_start
 
 Weights = Union[float, Dict[int, float]]
@@ -305,13 +305,15 @@ def neighbor_plan(self_weight=None, neighbor_weights=None,
                   force_gather: Optional[bool] = None,
                   op_name: Optional[str] = None) -> CombinePlan:
     """The (cached) combine plan for one set of weight arguments. A miss
-    under an ``op_name`` is that op's ``PLAN_BUILD`` activity."""
+    counts in ``opt.plan_builds``, and under an ``op_name`` is that op's
+    ``PLAN_BUILD`` activity."""
     st = _global_state()
     st.check_initialized()
     key = ("nar", _freeze(send_neighbors), _freeze(self_weight),
            _freeze(neighbor_weights), bool(enable_topo_check), force_gather)
     cached = st._plan_cache.get(key)
     if cached is None:
+        count("opt.plan_builds")
         with timeline_context(op_name, "PLAN_BUILD") if op_name else \
                 contextlib.nullcontext():
             if send_neighbors is None:

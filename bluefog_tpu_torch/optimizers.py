@@ -51,13 +51,24 @@ and never combined, as the JAX step returns each rank's ``batch_stats``
 uncombined (``with_model_state=True``, ``bluefog_tpu/optimizers.py:179-204``).
 
 Each ``step`` records as the JAX ``_FusedOptimizer.step`` does
-(:343-354): a ``STEP`` timeline activity under the optimizer's ``name``
-(its class name by default), the ``opt.step_sec`` histogram, the flight
-recorder's ``opt.step`` span with the step counter in ``b``, and the
-``opt.step`` gauge once the step returns; an exception escaping the step
-leaves a flight dump (``flight.fatal("opt.step", exc)``) and propagates.
-The spans time the host's issue of the step's device work: no step waits
-for the device.
+(:343-354): a ``STEP`` span under the optimizer's ``name`` (its class name
+by default; the flight recorder's ``opt.step``, with the step counter in
+``b``), the ``opt.step_sec`` histogram and the ``opt.step`` gauge once the
+step returns; an exception escaping the step leaves a flight dump
+(``flight.fatal("opt.step", exc)``) and propagates. Inside ``STEP`` each
+part of the step is a span of its own (``runtime/timeline.py``'s
+``timeline_context``: the timeline while it is on, a ``torch.profiler``
+range while a profiler runs, the flight recorder's span that
+``bf.step_report()`` reads): ``FORWARD``, ``BACKWARD`` and ``UPDATE``
+(``local``); ``COMBINE`` with ``PACK``, ``EXCHANGE`` (``wire``), ``SUM``
+(``fold``) and ``UNPACK`` inside it; ``WRITE_BACK`` (``unpack``);
+``ALLREDUCE``, or ZeRO-1's ``REDUCE_SCATTER`` and ``ALL_GATHER``
+(``wire``). The combine counts its bytes and sends (``opt.combine_bytes``,
+``opt.combine_sends``); while a profiler runs or the timeline is on, a CUDA
+step also counts the caching allocator's device allocations, frees and
+retries (``mem.device_allocs``, ``mem.device_frees``,
+``mem.alloc_retries``). The spans time the host's issue of the step's
+device work: no step waits for the device.
 
 Usage::
 
@@ -86,7 +97,7 @@ from .ops.collectives import _all_gather_flat, _reduce_scatter_flat
 from .ops.neighbors import (_dynamic_weight_matrix, _per_rank,
                             _uniform_weights, hierarchical_start,
                             neighbor_plan)
-from .ops.plan import CombinePlan, spmd_combine
+from .ops.plan import CombinePlan, _acc_dtype, spmd_combine_start
 from .runtime import control_plane as _cp
 from .runtime import flight as _flight
 from .runtime import heartbeat as _hb
@@ -97,30 +108,56 @@ from .runtime.config import knob_env
 from .runtime.logging import logger
 from .runtime.native import ControlPlaneClient, PeerLostError
 from .runtime.state import _global_state
-from .runtime.timeline import timeline_context
+from .runtime.timeline import count, timeline_context, tracing
 
 # Consensus-gauge cadence (seconds): the time-series sampler's ~1 Hz gate
 _CONSENSUS_MIN_GAP = 0.9
 
 
 def fused_combine(tensors: List[torch.Tensor], plan: CombinePlan, *,
-                  hierarchical: bool = False) -> List[torch.Tensor]:
+                  hierarchical: bool = False, name: str = "fused_combine",
+                  step: int = 0) -> List[torch.Tensor]:
     """The combine of ``plan`` over ``tensors`` packed into one flat fusion
     buffer, so it costs one send per shift; returns the combined tensors
-    (the torch frontend's ``DistributedTorchOptimizer`` runs it too)."""
+    (the torch frontend's ``DistributedTorchOptimizer`` runs it too).
+
+    Its parts are spans under ``name`` for step ``step``: ``PACK``;
+    ``EXCHANGE``, the issue of the transfers and the wait on them (the
+    flight recorder's ``wire`` phase); ``SUM``, the weighted sum (``fold``);
+    ``UNPACK``. The bytes and sends this rank hands to the transfers count
+    in ``opt.combine_bytes`` and ``opt.combine_sends``: one send per shift,
+    or one to each other rank under the gather strategy; the hierarchical
+    kind counts its machine exchange of the f32 means, not the machine's
+    own all-reduce."""
     st = _global_state()
     spec = _fusion.make_spec(tensors)
-    flat = _fusion.pack(tensors, spec)
-    if hierarchical:
-        work, finish = hierarchical_start(plan, [flat])
+    with timeline_context(name, "PACK", flight="opt.pack", b=step):
+        flat = _fusion.pack(tensors, spec)
+    sends = plan.n - 1 if plan.use_gather else len(plan.shifts)
+    with timeline_context(name, "EXCHANGE", flight="opt.exchange", b=step):
+        if hierarchical:
+            work, finish = hierarchical_start(plan, [flat])
+            itemsize = _acc_dtype(flat.dtype).itemsize
+        else:
+            work, finish = spmd_combine_start(
+                plan.weight_array(), [flat], rank=st.rank, n=plan.n,
+                shifts=plan.shifts, use_gather=plan.use_gather)
+            itemsize = flat.element_size()
         for req in work:
             req.wait()
+    count("opt.combine_sends", sends)
+    count("opt.combine_bytes", sends * flat.numel() * itemsize)
+    with timeline_context(name, "SUM", flight="opt.sum", b=step):
         (out,) = finish()
-    else:
-        (out,) = spmd_combine(plan.weight_array(), [flat], rank=st.rank,
-                              n=plan.n, shifts=plan.shifts,
-                              use_gather=plan.use_gather)
-    return _fusion.unpack(out, spec)
+    with timeline_context(name, "UNPACK", flight="opt.unpack", b=step):
+        return _fusion.unpack(out, spec)
+
+
+# The caching allocator's counters whose per-step deltas a traced step
+# records, as (metric, ``torch.cuda.memory_stats()`` key)
+_ALLOCATOR_STATS = (("mem.device_allocs", "num_device_alloc"),
+                    ("mem.device_frees", "num_device_free"),
+                    ("mem.alloc_retries", "num_alloc_retries"))
 
 
 class _FusedOptimizer:
@@ -141,6 +178,8 @@ class _FusedOptimizer:
         self.num_steps_per_communication = int(num_steps_per_communication)
         self.name = name or type(self).__name__
         self._counter = 0
+        # (step, counters) of the caching allocator's last traced reading
+        self._allocator_last: Optional[Tuple[int, List[int]]] = None
         self._params: List[nn.Parameter] = [
             p for g in optimizer.param_groups for p in g["params"]]
 
@@ -158,7 +197,14 @@ class _FusedOptimizer:
     def _combine(self, tensors: List[torch.Tensor],
                  plan: CombinePlan) -> List[torch.Tensor]:
         return fused_combine(tensors, plan,
-                             hierarchical=self._comm_kind == "hierarchical")
+                             hierarchical=self._comm_kind == "hierarchical",
+                             name=self.name, step=self._counter)
+
+    def _span(self, activity: str, flight: Optional[str] = None):
+        """A span of this step under the optimizer's name (its flight
+        recorder's span ``flight``, if given)."""
+        return timeline_context(self.name, activity, flight=flight,
+                                b=self._counter)
 
     def step(self, batch) -> Dict[str, torch.Tensor]:
         """One training iteration of this rank; returns ``{"loss": ...}``."""
@@ -168,9 +214,8 @@ class _FusedOptimizer:
         plan = self._plan() if kind in ("neighbor_allreduce",
                                         "hierarchical") else None
         try:
-            with timeline_context(self.name, "STEP"), \
-                    _metrics.timed("opt.step_sec"), \
-                    _flight.recorder().span("opt.step", b=self._counter):
+            with self._span("STEP", "opt.step"), \
+                    _metrics.timed("opt.step_sec"):
                 loss = self._step(batch, kind, plan)
         except Exception as exc:
             # black-box dump before the stack unwinds: the ring's tail IS
@@ -178,27 +223,52 @@ class _FusedOptimizer:
             _flight.fatal("opt.step", exc)
             raise
         _metrics.gauge("opt.step").set(self._counter)
+        if tracing():
+            self._count_allocator()
         return {"loss": loss.detach()}
+
+    def _count_allocator(self) -> None:
+        """This step's deltas of the caching allocator's counters
+        (``_ALLOCATOR_STATS``), taken only between two consecutive traced
+        steps, with a timeline counter track each."""
+        dev = self._params[0].device if self._params else None
+        if dev is None or dev.type != "cuda":
+            return
+        stats = torch.cuda.memory_stats_as_nested_dict(dev)
+        now = [int(stats.get(key, 0)) for _, key in _ALLOCATOR_STATS]
+        last = self._allocator_last
+        if last is not None and last[0] == self._counter - 1:
+            for (name, _), a, b in zip(_ALLOCATOR_STATS, last[1], now):
+                count(name, b - a)
+        self._allocator_last = (self._counter, now)
 
     def _step(self, batch, kind: str,
               plan: Optional[CombinePlan]) -> torch.Tensor:
         """The step's work: loss and backward, update, communication."""
         self.base.zero_grad(set_to_none=True)
-        loss = self.loss_fn(self.model, batch)
-        loss.backward()
+        with self._span("FORWARD", "opt.forward"):
+            loss = self.loss_fn(self.model, batch)
+        with self._span("BACKWARD", "opt.backward"):
+            loss.backward()
         if kind == "gradient_allreduce":
             live = [p for p in self._params if p.grad is not None]
-            with torch.no_grad():
+            with self._span("ALLREDUCE", "opt.allreduce"), torch.no_grad():
                 for p, g in zip(live, self._average([p.grad for p in live])):
                     p.grad.copy_(g)
-        self.base.step()
+        with self._span("UPDATE", "opt.update"):
+            self.base.step()
         if kind in ("allreduce", "neighbor_allreduce", "hierarchical"):
             with torch.no_grad():
                 ps = [p.detach() for p in self._params]
-                new = self._average(ps) if kind == "allreduce" else \
-                    self._combine(ps, plan)
-                for p, v in zip(ps, new):
-                    p.copy_(v)
+                if kind == "allreduce":
+                    with self._span("ALLREDUCE", "opt.allreduce"):
+                        new = self._average(ps)
+                else:
+                    with self._span("COMBINE"):
+                        new = self._combine(ps, plan)
+                with self._span("WRITE_BACK", "opt.write_back"):
+                    for p, v in zip(ps, new):
+                        p.copy_(v)
         return loss
 
 
@@ -361,20 +431,25 @@ class DistributedShardedAllreduceOptimizer(_FusedOptimizer):
             for p, pv, _ in self._copied:
                 p.grad = None
                 pv.copy_(p)
-        loss = self.loss_fn(self.model, batch)
-        loss.backward()
+        with self._span("FORWARD", "opt.forward"):
+            loss = self.loss_fn(self.model, batch)
+        with self._span("BACKWARD", "opt.backward"):
+            loss.backward()
         with torch.no_grad():
-            for p, _, gv in self._copied:
-                if p.grad is not None:
-                    gv.copy_(p.grad)
-            # in place: this rank's shard is the slice the scatter fills
-            _reduce_scatter_flat(self._shard.grad, self._flat_g,
-                                 op=dist.ReduceOp.SUM)
-            self._shard.grad.div_(n)
-            self.base.step()
-            _all_gather_flat(self._flat_p, self._shard.detach())
-            for p, pv, _ in self._copied:
-                p.copy_(pv)
+            with self._span("REDUCE_SCATTER", "opt.reduce_scatter"):
+                for p, _, gv in self._copied:
+                    if p.grad is not None:
+                        gv.copy_(p.grad)
+                # in place: this rank's shard is the slice the scatter fills
+                _reduce_scatter_flat(self._shard.grad, self._flat_g,
+                                     op=dist.ReduceOp.SUM)
+                self._shard.grad.div_(n)
+            with self._span("UPDATE", "opt.update"):
+                self.base.step()
+            with self._span("ALL_GATHER", "opt.all_gather"):
+                _all_gather_flat(self._flat_p, self._shard.detach())
+                for p, pv, _ in self._copied:
+                    p.copy_(pv)
         return loss
 
 
@@ -709,20 +784,19 @@ class _WindowOptimizer(_FusedOptimizer):
 
     def _step(self, batch, kind: str,
               plan: Optional[CombinePlan]) -> torch.Tensor:
-        """The local step, then (on a communicating step) the gossip; the
-        base ``step`` wraps it in the STEP spans and the flight dump of a
+        """The local step (its ``FORWARD``, ``BACKWARD`` and ``UPDATE``
+        spans), then (on a communicating step) the gossip; the base
+        ``step`` wraps it in the STEP spans and the flight dump of a
         failing step (``PeerLostError`` included once the retry is
         spent)."""
-        fl = _flight.recorder()
-        with fl.span("opt.local"):
-            loss = super()._step(batch, "none", None)
+        loss = super()._step(batch, "none", None)
         if kind == self._comm_kind:
-            self._communicate(fl)
+            self._communicate()
             _timeseries.maybe_sample()
             _tuner.maybe_tick()
         return loss
 
-    def _communicate(self, fl) -> None:
+    def _communicate(self) -> None:
         params = self._params
         win0 = _windows._get_window(self._win_names[0])
         if win0.hosted:
@@ -731,8 +805,7 @@ class _WindowOptimizer(_FusedOptimizer):
             self._serve_rejoin_requests()
             self._publish_step_counter()
         shard = -1
-        with timeline_context(self.name, "PACK"), \
-                _metrics.timed("opt.pack_sec"), fl.span("opt.pack"), \
+        with self._span("PACK", "opt.pack"), _metrics.timed("opt.pack_sec"), \
                 torch.no_grad():
             if self._shard_factor > 1:
                 shard = self._active_shard()
@@ -744,8 +817,8 @@ class _WindowOptimizer(_FusedOptimizer):
                 packed = [_fusion.pack([params[i].detach() for i in idxs],
                                        spec)
                           for idxs, spec in zip(self._groups, self._specs)]
-        with _metrics.timed("opt.gossip_sec"), fl.span("opt.gossip"), \
-                torch.no_grad():
+        with self._span("GOSSIP", "opt.gossip"), \
+                _metrics.timed("opt.gossip_sec"), torch.no_grad():
             if self._fused_pack:
                 # a PeerLostError here comes from the hoisted acquire,
                 # before any data op: the retry recomputes the tables over
@@ -765,9 +838,8 @@ class _WindowOptimizer(_FusedOptimizer):
                             "once on the self-healed topology", exc)
             else:
                 mixed = self._gossip(packed)
-        with timeline_context(self.name, "UNPACK"), \
-                _metrics.timed("opt.unpack_sec"), fl.span("opt.unpack"), \
-                torch.no_grad():
+        with self._span("UNPACK", "opt.unpack"), \
+                _metrics.timed("opt.unpack_sec"), torch.no_grad():
             for idxs, spec, buf in zip(self._groups, self._specs, mixed):
                 group = [params[i] for i in idxs]
                 if shard >= 0:

@@ -506,12 +506,24 @@ def merge_dumps(docs: List[dict]) -> list:
 
 # -- step-time attribution ---------------------------------------------------
 
-# span name -> phase bucket (the JAX package's vocabulary; the port's
-# optimizers record only ``opt.step``, so its steps land in ``other``).
+# span name -> phase bucket: the JAX package's vocabulary, which the
+# window optimizers record, and the spans of the port's fused steps (the
+# local step's forward, backward and update; the combine's exchange and
+# weighted sum; the collectives of the all-reduce kinds and ZeRO-1; the
+# write-back of the combined parameters).
 _PHASE_OF = {
     "opt.local": "local",
+    "opt.forward": "local",
+    "opt.backward": "local",
+    "opt.update": "local",
     "opt.pack": "pack",
+    "opt.exchange": "wire",
+    "opt.allreduce": "wire",
+    "opt.reduce_scatter": "wire",
+    "opt.all_gather": "wire",
+    "opt.sum": "fold",
     "opt.unpack": "unpack",
+    "opt.write_back": "unpack",
     "win.wire": "wire",
     "win.publish": "wire",
     "win.drain": "drain",

@@ -11,12 +11,21 @@ ts=0, so ``scripts/merge_timelines.py`` lays the ranks' files on one axis.
 (``bf_timeline_*`` of ``csrc/bf_runtime.cc``, built at first use) instead
 of the Python writer thread; the file is the same chrome JSON.
 
-:func:`timeline_context` also opens
-``torch.profiler.record_function("<name>.<activity>")``, the counterpart of
-the JAX package's ``jax.profiler.TraceAnnotation``: under ``torch.profiler``
-the CUDA kernels a span issues land inside its named range. It does so
-whether or not the timeline is on. A span times the host's issue of the
-work, as the JAX package's spans time a jitted dispatch.
+Events are stamped on the clock ``torch.profiler`` stamps its host events
+with, the wall clock (``time.time_ns()``), counted from the clock anchor,
+so a timeline file, a profiler trace and the card's activity in it lie on
+one axis.
+
+:class:`timeline_context` is the one span helper of the port: a single
+``with`` records a named span in every reader that is on. The timeline's
+span while the timeline is on; ``torch.profiler.record_function(
+"<name>.<activity>")`` only while a profiler runs (the counterpart of the
+JAX package's ``jax.profiler.TraceAnnotation``: the CUDA kernels the span
+launches land inside its named range); and, given ``flight=``, the flight
+recorder's span of that name, which ``bf.step_report()`` reads. With the
+profiler and the timeline off a span costs a flag check and the flight
+ring's two stores. A span times the host's issue of the work, as the JAX
+package's spans time a jitted dispatch.
 
 Flow events (:func:`timeline_flow_start`/:func:`timeline_flow_finish`,
 ``ph: "s"``/``"f"``, category ``bf.flow``) bind an event in one process's
@@ -30,7 +39,6 @@ merged per-rank files draw an arrow from the ``win_put`` to the
 
 from __future__ import annotations
 
-import contextlib
 import json
 import queue
 import threading
@@ -39,7 +47,12 @@ from typing import Optional
 
 import torch
 
+from . import flight as _flight
+from . import metrics as _metrics
 from .logging import logger
+
+# Seconds the Python writer lets events gather before it writes them
+_DRAIN_S = 0.02
 
 # Counter-event name anchoring each per-process trace to the wall clock;
 # scripts/merge_timelines.py keys on it to align files before merging.
@@ -60,7 +73,9 @@ class Timeline:
             process_index = st.rank if st.initialized else 0
         pid = process_index
         self.path = f"{prefix}{pid}.json"
-        self._t0 = time.perf_counter_ns()
+        # the profiler's clock, at a whole microsecond: ts = 0 is the
+        # anchor's value exactly
+        self._t0 = time.time_ns() // 1000 * 1000
         self._pid = pid
         self._closed = False
         self._failed = False  # writer died: stop producing so the queue can't grow
@@ -84,13 +99,15 @@ class Timeline:
                 daemon=True)
             self._writer.start()
         # Clock-sync anchor: the first event of every trace is a counter
-        # carrying the wall-clock microseconds at (about) ts=0.
-        self.counter(CLOCK_SYNC_COUNTER, time.time_ns() // 1000)
+        # carrying the wall-clock microseconds at ts=0.
+        self._put({"name": CLOCK_SYNC_COUNTER, "cat": "bf", "ph": "C",
+                   "ts": 0, "pid": pid, "tid": 0,
+                   "args": {"value": self._t0 // 1000}})
 
     # -- producer side (any thread) ---------------------------------------
 
     def _now_us(self) -> float:
-        return (time.perf_counter_ns() - self._t0) / 1e3
+        return (time.time_ns() - self._t0) / 1e3
 
     def _put(self, ev: dict) -> None:
         if self._failed or self._closed:
@@ -113,9 +130,12 @@ class Timeline:
                     ev["tid"])
 
     def activity_start(self, tensor_name: str, activity: str,
-                       tid: int = 0) -> None:
-        self._put({"name": activity, "cat": tensor_name, "ph": "B",
-                   "ts": self._now_us(), "pid": self._pid, "tid": tid})
+                       tid: int = 0, args: Optional[dict] = None) -> None:
+        ev = {"name": activity, "cat": tensor_name, "ph": "B",
+              "ts": self._now_us(), "pid": self._pid, "tid": tid}
+        if args:
+            ev["args"] = args    # the Python writer's only: native drops it
+        self._put(ev)
 
     def activity_end(self, tensor_name: str, tid: int = 0) -> None:
         self._put({"ph": "E", "ts": self._now_us(), "pid": self._pid,
@@ -160,16 +180,29 @@ class Timeline:
         try:
             with open(self.path, "w") as f:
                 f.write("[\n")
-                first = True
-                while True:
-                    ev = self._q.get()
-                    if ev is Timeline._SENTINEL:
-                        break
-                    if not first:
-                        f.write(",\n")
-                    f.write(json.dumps(ev))
-                    first = False
-                    f.flush()
+                sep = ""
+                done = False
+                while not done:
+                    # wake on an event, then let the events of the next
+                    # _DRAIN_S gather: the writer takes the GIL from the
+                    # step that makes them once a batch, not once an event
+                    batch = [self._q.get()]
+                    time.sleep(_DRAIN_S)
+                    while True:
+                        try:
+                            batch.append(self._q.get_nowait())
+                        except queue.Empty:
+                            break
+                    lines = []
+                    for ev in batch:
+                        if ev is Timeline._SENTINEL:
+                            done = True
+                            break
+                        lines.append(json.dumps(ev))
+                    if lines:
+                        f.write(sep + ",\n".join(lines))
+                        sep = ",\n"
+                        f.flush()
                 f.write("\n]\n")
         except OSError as exc:  # disk full / bad prefix: drop, don't crash train
             self._failed = True
@@ -190,10 +223,17 @@ class Timeline:
 
 # -- module-level API mirroring bf.timeline_* (basics.py:308-388) -----------
 
-def _timeline() -> Optional[Timeline]:
-    from .state import _global_state
+# the runtime's state object, bound at first use: ``state`` imports modules
+# that import this one
+_STATE: list = []
 
-    return _global_state().timeline
+
+def _timeline() -> Optional[Timeline]:
+    if not _STATE:
+        from .state import _global_state
+
+        _STATE.append(_global_state())
+    return _STATE[0].timeline
 
 
 def timeline_start_activity(tensor_name: str, activity: str,
@@ -222,9 +262,23 @@ def timeline_counter(name: str, value, tid: int = 0) -> bool:
     return True
 
 
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the metrics registry's counter ``name`` and, while the
+    timeline is on, sample its value on the counter track of that name."""
+    c = _metrics.counter(name)
+    c.inc(n)
+    timeline_counter(name, c.value)
+
+
+def tracing() -> bool:
+    """Whether a profiler runs (however it was started) or the timeline is
+    on: the instruments too dear for every step record only then."""
+    return torch.autograd._profiler_enabled() or _timeline() is not None
+
+
 def _profiler_mark(label: str) -> None:
     """An empty ``record_function`` range, only while a profiler runs."""
-    if torch.autograd.profiler._is_profiler_enabled:
+    if torch.autograd._profiler_enabled():
         with torch.profiler.record_function(label):
             pass
 
@@ -259,18 +313,51 @@ def timeline_instant(tensor_name: str, activity: str, tid: int = 0) -> bool:
     return True
 
 
-@contextlib.contextmanager
-def timeline_context(tensor_name: str, activity: str, tid: int = 0):
-    """Named span in the host timeline AND the torch.profiler trace."""
-    tl = _timeline()
-    with torch.profiler.record_function(f"{tensor_name}.{activity}"):
-        if tl is not None:
-            tl.activity_start(tensor_name, activity, tid)
-        try:
-            yield
-        finally:
-            if tl is not None:
-                tl.activity_end(tensor_name, tid)
+class timeline_context:
+    """``with timeline_context(name, activity)``: one named span of the host
+    in every reader that is on (the module's docstring).
+
+    ``flight``: the name of the flight recorder's span too (``opt.pack``,
+    ...); ``b``: the step it belongs to, in the flight span's aux column and
+    the timeline event's ``args``, so the spans of one step share it."""
+
+    __slots__ = ("_name", "_activity", "_tid", "_flight", "_b", "_rf",
+                 "_tl", "_fl", "_nid")
+
+    def __init__(self, tensor_name: str, activity: str, tid: int = 0, *,
+                 flight: Optional[str] = None, b: int = 0) -> None:
+        self._name = tensor_name
+        self._activity = activity
+        self._tid = tid
+        self._flight = flight
+        self._b = b
+
+    # the flight span opens first and closes last, so a phase's time in
+    # ``bf.step_report()`` holds what the other readers cost it
+    def __enter__(self) -> "timeline_context":
+        if self._flight is not None:
+            self._fl = _flight.recorder()
+            self._nid = self._fl.intern(self._flight)
+            self._fl.rec(_flight.SPAN_B, self._nid, 0.0, self._b)
+        self._tl = _timeline()
+        if self._tl is not None:
+            self._tl.activity_start(self._name, self._activity, self._tid,
+                                    {"step": self._b} if self._b else None)
+        self._rf = None
+        if torch.autograd._profiler_enabled():
+            self._rf = torch.profiler.record_function(
+                f"{self._name}.{self._activity}")
+            self._rf.__enter__()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        if self._rf is not None:
+            self._rf.__exit__(*exc)
+        if self._tl is not None:
+            self._tl.activity_end(self._name, self._tid)
+        if self._flight is not None:
+            self._fl.rec(_flight.SPAN_E, self._nid, 0.0, self._b)
+        return False
 
 
 def start_timeline(prefix: str) -> bool:

@@ -111,10 +111,12 @@ class DistributedTorchOptimizer:
     dynamic topology. ``zero_grad`` and every other attribute pass through
     to the wrapped optimizer.
 
-    Each ``step`` records as the port's fused optimizers do: a ``STEP``
-    timeline activity under the optimizer's class name with the mixing's
-    ``NEIGHBOR_ALLREDUCE`` inside it, the ``opt.step_sec`` histogram, the
-    flight recorder's ``opt.step`` span and the ``opt.step`` gauge.
+    Each ``step`` records as the port's fused optimizers do: a ``STEP`` span
+    under the optimizer's class name (the flight recorder's ``opt.step``)
+    with the wrapped optimizer's ``UPDATE`` and the mixing's
+    ``NEIGHBOR_ALLREDUCE`` inside it, and within that the combine's parts
+    and the ``WRITE_BACK``; the ``opt.step_sec`` histogram and the
+    ``opt.step`` gauge.
     """
 
     def __init__(self, optimizer: torch.optim.Optimizer, modules,
@@ -138,10 +140,12 @@ class DistributedTorchOptimizer:
     def step(self, *a, **k):
         self._counter += 1
         try:
-            with timeline_context(self.name, "STEP"), \
-                    _metrics.timed("opt.step_sec"), \
-                    _flight.recorder().span("opt.step", b=self._counter):
-                out = self.optimizer.step(*a, **k)
+            with timeline_context(self.name, "STEP", flight="opt.step",
+                                  b=self._counter), \
+                    _metrics.timed("opt.step_sec"):
+                with timeline_context(self.name, "UPDATE",
+                                      flight="opt.update", b=self._counter):
+                    out = self.optimizer.step(*a, **k)
                 if self._counter % self.num_steps_per_communication == 0:
                     self._mix()
         except Exception as exc:
@@ -154,10 +158,14 @@ class DistributedTorchOptimizer:
         plan = neighbor_plan(self.self_weight, self.neighbor_weights,
                              self.send_neighbors, op_name=self.name)
         with torch.no_grad(), \
-                timeline_context(self.name, "NEIGHBOR_ALLREDUCE"):
+                timeline_context(self.name, "NEIGHBOR_ALLREDUCE",
+                                 b=self._counter):
             ps = [p.detach() for p in self._params]
-            for p, v in zip(ps, fused_combine(ps, plan)):
-                p.copy_(v)
+            new = fused_combine(ps, plan, name=self.name, step=self._counter)
+            with timeline_context(self.name, "WRITE_BACK",
+                                  flight="opt.write_back", b=self._counter):
+                for p, v in zip(ps, new):
+                    p.copy_(v)
 
     def __getattr__(self, name):  # passthrough (param_groups, state, ...)
         if "optimizer" not in self.__dict__:

@@ -5,18 +5,18 @@
         [--rounds N]
 
 Runs ``chip_smoke.py``'s overhead blocks (``_obs_blocks``) with more
-rounds than the smoke does: ``N`` rounds (default 10) of off, on, on, off
-blocks, where off is collection only (the metrics registry, the flight
-ring, the ``record_function`` ranges: always on) and on adds the timeline
-and a 1 s Prometheus publisher. Each block times the host's issue of
-``chip_smoke.OBS_ISSUE_PROBES`` steps one by one from an idle device, then
-a run of steps to a synchronise: 5 for ``lm`` (``chip_smoke.headline``,
-the headline flash LM under ``DistributedNeighborAllreduceOptimizer``
-around Adam), 20 for ``resnet50`` (``bluefog_tpu_torch.bench.setup``'s
-step). Prints each block, then per mode the median and the quartiles of
-ms/step and of host issue ms, the on/off ratio of the medians, and how
-many of the rounds' adjacent (off, on) pairs the on block lost. Needs one
-CUDA card.
+rounds than the smoke does: ``N`` rounds (default 10) of off, on, on,
+off blocks, where off is collection only (the metrics registry and the
+flight ring: always on; no ``record_function`` range opens without a
+profiler) and on adds the timeline and a 1 s Prometheus publisher. Each
+block times the host's issue of ``chip_smoke.OBS_ISSUE_PROBES`` steps
+one by one from an idle device, then a run of steps to a synchronise: 5
+for ``lm`` (``chip_smoke.headline``, the headline flash LM under
+``DistributedNeighborAllreduceOptimizer`` around Adam), 20 for
+``resnet50`` (``bluefog_tpu_torch.bench.setup``'s step). Prints each
+block, then per mode the median and the quartiles of ms/step and of host
+issue ms, the on/off ratio of the medians, and how many of the rounds'
+adjacent (off, on) pairs the on block lost. Needs one CUDA card.
 """
 
 from __future__ import annotations

@@ -213,6 +213,106 @@ def _optimizers(bf, torch, rank: int, world: int, inp) -> dict:
     return out
 
 
+def profiled_ranges(fn):
+    """``fn()`` under ``torch.profiler`` started directly, as a recorder
+    that keeps the host's ``record_function`` ranges alone (the user
+    scope): no aten op, and ``torch.autograd.profiler``'s Python flag left
+    unset. Returns ``(ranges, tid)``: each range's name to its sorted
+    ``(start_ns, end_ns, thread)`` intervals, and the thread that ran
+    ``fn``."""
+    import torch
+    from torch._C._autograd import _disable_profiler, _enable_profiler
+    from torch._C._profiler import RecordScope
+
+    prof = torch.autograd.profiler.profile(use_kineto=True)
+    prof._prepare_trace()
+    try:
+        config = prof.config(create_trace_id=False)
+    except TypeError:
+        config = prof.config()
+    _enable_profiler(config, prof.kineto_activities, {RecordScope.USER_SCOPE})
+    try:
+        with torch.profiler.record_function("test.window"):
+            fn()
+    finally:
+        events = _disable_profiler().events()
+    ranges: dict = {}
+    for e in events:
+        if e.is_user_annotation():
+            start = e.start_ns()
+            ranges.setdefault(e.name(), []).append(
+                (start, start + e.duration_ns(), e.device_resource_id()))
+    ranges = {k: sorted(v) for k, v in ranges.items()}
+    return ranges, ranges["test.window"][0][2]
+
+
+# the fused kinds of the step-span tests, by class name
+SPAN_KINDS = ("DistributedGradientAllreduceOptimizer",
+              "DistributedAllreduceOptimizer",
+              "DistributedNeighborAllreduceOptimizer",
+              "DistributedHierarchicalNeighborAllreduceOptimizer",
+              "DistributedShardedAllreduceOptimizer")
+
+
+def _step_spans(bf, torch, rank: int, world: int, inp) -> dict:
+    """For each fused kind: one step (after a first) under a profiler
+    started directly (:func:`profiled_ranges`), its spans' names, starts
+    and ends on the step's thread; then the ``opt.combine_bytes``,
+    ``opt.combine_sends`` and ``opt.plan_builds`` one untraced step added,
+    beside the flat buffer's bytes and the plan's shifts, and the fullest
+    ``step_report()`` of it and four more."""
+    from torch import nn
+
+    from bluefog_tpu_torch.runtime import metrics
+
+    x = torch.from_numpy(inp["x"][rank])
+    counters = ("opt.combine_bytes", "opt.combine_sends", "opt.plan_builds")
+    out = {}
+    for kind in SPAN_KINDS:
+        torch.manual_seed(0)
+        # a step of milliseconds, so the few the host spends between the
+        # spans stay small beside it
+        model = nn.Sequential(nn.Linear(x.shape[-1], 1024), nn.Tanh(),
+                              nn.Linear(1024, 1024), nn.Tanh(),
+                              nn.Linear(1024, 1))
+        opt = getattr(bf, kind)(torch.optim.SGD(model.parameters(), lr=0.01),
+                                model, lambda m, b: (m(b) ** 2).mean())
+        opt.step(x)
+        ranges, tid = profiled_ranges(lambda: opt.step(x))
+        spans = sorted((a, -b, name) for name, ivs in ranges.items()
+                       if name.startswith(kind + ".")
+                       for a, b, t in ivs if t == tid)
+        out[f"{kind}:names"] = np.array([n[len(kind) + 1:]
+                                         for _, _, n in spans])
+        out[f"{kind}:spans"] = np.array([[a, -b] for a, b, _ in spans],
+                                        dtype=np.int64)
+        before = {c: metrics.counter(c).value for c in counters}
+        opt.step(x)
+        after = {c: metrics.counter(c).value for c in before}
+        # the best of a few steps: the suite shares its cores, and a rank
+        # descheduled between two spans is the host's pause, not the step's
+        rep = bf.step_report()
+        for _ in range(4):
+            opt.step(x)
+            rep = max(rep, bf.step_report(), key=lambda r: r["coverage"])
+        out[f"{kind}:coverage"] = np.array(rep["coverage"])
+        out[f"{kind}:step_sec"] = np.array(rep["step_sec"])
+        out[f"{kind}:phases"] = np.array([rep["phases"][p] for p in (
+            "local", "pack", "wire", "fold", "unpack")])
+        out[f"{kind}:bytes"] = np.array(
+            after["opt.combine_bytes"] - before["opt.combine_bytes"])
+        out[f"{kind}:sends"] = np.array(
+            after["opt.combine_sends"] - before["opt.combine_sends"])
+        out[f"{kind}:plan_builds"] = np.array(
+            after["opt.plan_builds"] - before["opt.plan_builds"])
+        out[f"{kind}:flat_bytes"] = np.array(
+            sum(p.numel() * p.element_size() for p in model.parameters()))
+        plan = opt._plan()
+        out[f"{kind}:shifts"] = np.array(
+            -1 if plan is None else len(plan.shifts))
+    return out
+
+
 def _vision(bf, torch, rank: int, world: int, inp) -> dict:
     """ResNet18 under DistributedNeighborAllreduceOptimizer around SGD
     (lr 0.1, momentum 0.9), this rank's images; the flax variables come in
@@ -1077,6 +1177,7 @@ def main() -> None:
            "checkpoint": _checkpoint, "expert": _expert,
            "optimization": _optimization, "tensor": _tensor,
            "pipeline": _pipeline, "timeline": _timeline,
+           "step_spans": _step_spans,
            "wire": _wire, "peer_lost": _peer_lost,
            "topo_check": _topo_check, "sidecar_epoch": _sidecar_epoch,
            "win_ops": win_ops, "win_hosted": win_hosted,
