@@ -44,6 +44,11 @@ row (``BFT_WIN_SHARD``), serves and runs the quarantined rejoin, and
 publishes serving snapshots (``BFT_SERVE_PUBLISH_EVERY``); their class
 docstring says how.
 
+The update is the base optimizer's own ``step``. On a ``torch.optim.Adam``
+or ``AdamW`` each wrapper installs ``ops/update.py``'s ``FusedAdamStep``
+as that ``step``: one pass of a hand-written kernel over the f32 state
+whenever that is torch's step exactly, torch's step otherwise.
+
 Only the optimizer's parameters (``optimizer.param_groups``) are
 communicated. A model's buffers — the BatchNorm ``mean``/``var`` of the
 vision models — stay local to each rank, updated by its own forward passes
@@ -64,7 +69,9 @@ range while a profiler runs, the flight recorder's span that
 (``fold``) and ``UNPACK`` inside it; ``WRITE_BACK`` (``unpack``);
 ``ALLREDUCE``, or ZeRO-1's ``REDUCE_SCATTER`` and ``ALL_GATHER``
 (``wire``). The combine counts its bytes and sends (``opt.combine_bytes``,
-``opt.combine_sends``); while a profiler runs or the timeline is on, a CUDA
+``opt.combine_sends``); the update counts in ``opt.update_fused`` the
+elements that the fused Adam kernel updated (0 when torch's own step ran);
+while a profiler runs or the timeline is on, a CUDA
 step also counts the caching allocator's device allocations, frees and
 retries (``mem.device_allocs``, ``mem.device_frees``,
 ``mem.alloc_retries``). The spans time the host's issue of the step's
@@ -92,6 +99,7 @@ from torch import nn
 from . import topology as topology_util
 from .ops import codec as _codec
 from .ops import fusion as _fusion
+from .ops import update as _update
 from .ops import windows as _windows
 from .ops.collectives import _all_gather_flat, _reduce_scatter_flat
 from .ops.neighbors import (_dynamic_weight_matrix, _per_rank,
@@ -182,6 +190,7 @@ class _FusedOptimizer:
         self._allocator_last: Optional[Tuple[int, List[int]]] = None
         self._params: List[nn.Parameter] = [
             p for g in optimizer.param_groups for p in g["params"]]
+        self._fused = _update.FusedAdamStep.install(optimizer)
 
     def _plan(self) -> Optional[CombinePlan]:
         return None
@@ -242,6 +251,17 @@ class _FusedOptimizer:
                 count(name, b - a)
         self._allocator_last = (self._counter, now)
 
+    def _update(self) -> None:
+        """The base optimizer's step in the ``UPDATE`` span; counts in
+        ``opt.update_fused`` the elements that the fused Adam kernel updated
+        (``ops/update.py``; 0 when torch's own step ran)."""
+        if self._fused is not None:
+            self._fused.updated = 0
+        with self._span("UPDATE", "opt.update"):
+            self.base.step()
+        count("opt.update_fused",
+              self._fused.updated if self._fused is not None else 0)
+
     def _step(self, batch, kind: str,
               plan: Optional[CombinePlan]) -> torch.Tensor:
         """The step's work: loss and backward, update, communication."""
@@ -255,8 +275,7 @@ class _FusedOptimizer:
             with self._span("ALLREDUCE", "opt.allreduce"), torch.no_grad():
                 for p, g in zip(live, self._average([p.grad for p in live])):
                     p.grad.copy_(g)
-        with self._span("UPDATE", "opt.update"):
-            self.base.step()
+        self._update()
         if kind in ("allreduce", "neighbor_allreduce", "hierarchical"):
             with torch.no_grad():
                 ps = [p.detach() for p in self._params]
@@ -419,6 +438,7 @@ class DistributedShardedAllreduceOptimizer(_FusedOptimizer):
         hp = {k: v for k, v in optimizer.param_groups[0].items()
               if k != "params"}
         self.base = type(optimizer)([{"params": [self._shard], **hp}])
+        self._fused = _update.FusedAdamStep.install(self.base)
 
     def _step(self, batch, kind: str,
               plan: Optional[CombinePlan]) -> torch.Tensor:
@@ -444,8 +464,7 @@ class DistributedShardedAllreduceOptimizer(_FusedOptimizer):
                 _reduce_scatter_flat(self._shard.grad, self._flat_g,
                                      op=dist.ReduceOp.SUM)
                 self._shard.grad.div_(n)
-            with self._span("UPDATE", "opt.update"):
-                self.base.step()
+            self._update()
             with self._span("ALL_GATHER", "opt.all_gather"):
                 _all_gather_flat(self._flat_p, self._shard.detach())
                 for p, pv, _ in self._copied:

@@ -21,7 +21,7 @@ from typing import Dict, Iterable
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD = Path(__file__).resolve().parent.parent / "_build"
-KERNEL_SOURCES = ("flash_fwd", "flash_bwd")
+KERNEL_SOURCES = ("flash_fwd", "flash_bwd", "adam")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -84,10 +84,12 @@ def build(names: Iterable[str] = KERNEL_SOURCES) -> Dict[str, str]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, building it if needed."""
+    """The loaded library of ``csrc/<name>.cu``, building it if needed,
+    together with every other kernel source not yet built (one wait for
+    the nvcc processes of a step's first use, not one after another)."""
     lib = _libs.get(name)
     if lib is None:
-        build([name])
+        build(KERNEL_SOURCES)
         lib = ctypes.CDLL(str(_lib_path(name)))
         _libs[name] = lib
     return lib

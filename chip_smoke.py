@@ -27,8 +27,10 @@ Phases (each raises on failure; the script then exits non-zero):
    of 128, d_ff 8192, vocab 32768, bf16 compute, f32 params) under
    ``DistributedNeighborAllreduceOptimizer`` around Adam (lr 1e-3), batch
    1 x 8192 tokens, 2 warm-up and 5 timed steps. The launch counts are set
-   to 0 just before and read just after; each kernel must show ``LAYERS``
-   launches per step. Before that, a small model checks flash logits and
+   to 0 just before and read just after; each flash kernel must show
+   ``LAYERS`` launches per step, and the fused Adam kernel (``csrc/adam.cu``)
+   one per 64 f32 tensors, as on every path ``_check_training`` checks
+   (none where torch's own step runs). Before that, a small model checks flash logits and
    gradients against dense attention on the card.
 5. context, at the main path's shape (bf16, causal, S=8192): (a) a
    virtual ring of 4 ranks of 2048 tokens, the port's own ring step
@@ -66,7 +68,11 @@ Phases (each raises on failure; the script then exits non-zero):
    ``DistributedNeighborAllreduceOptimizer`` the same way; (e) NCCL's
    ``reduce_scatter`` and ``all_gather`` of the 335,562,752-element f32
    buffer (out of place and in place, as the step runs them), CUDA events,
-   beside the copy bound.
+   beside the copy bound; (f) the fused Adam kernel on the benchmark LM's
+   parameter list against its plain version and ``torch.optim.Adam``'s
+   foreach step (``TOL_UPDATE``), whether it equals the latter bit for bit,
+   its launches, and each version's ms a step beside the bound and beside
+   torch's one-pass ``Adam(fused=True)``, timed as a yardstick only.
 7. ce check: ``chunked_ce_loss`` against the full-logits ``lm_loss`` on the
    headline model in bf16, one batch: the loss and every gradient within
    ``TOL_CE_*``; one chunk's targets rolled by one position must land
@@ -325,7 +331,8 @@ Phases (each raises on failure; the script then exits non-zero):
    a fake SCALE_AUX_N: 4 all-to-alls a MoE layer and each chip's payload,
    LAYERS launches of each kernel. The record is one JSON line.
 
-The line before the last is the ``kernels`` JSON; the last line is
+The line before the last is the ``kernels`` JSON (the flash kernels and
+the fused Adam kernel, each with its launches by path); the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 package beside this file, it exits non-zero and prints no result.
 """
@@ -528,6 +535,25 @@ TOL_PP_TRAIN = 5e-3
 OPS_SHAPE = (4096, 2048)
 OPT_CHECK_STEPS = 3
 TOL_ZERO1 = 0.0
+# (f) the fused Adam kernel (``ops/update.py``, ``csrc/adam.cu``) on the
+# parameter list of the benchmark's LM (Pythia-1.4B's widths, UPDATE_LM:
+# 1,414,105,088 f32 parameters in 147 tensors), UPDATE_STEPS steps of Adam
+# 1e-3 from the LM's seeded weights with seeded gradients (each tensor's of
+# its own scale, 1e-6 to 1e-2), through ``FusedAdamStep`` against its plain
+# version and against ``torch.optim.Adam``'s own step (torch's foreach
+# chain): parameters and both moments within TOL_UPDATE of each tensor's
+# largest magnitude (both share the kernel's f32 arithmetic, so they differ
+# by roundings at most); the launches UPDATE_STEPS times ceil(147 / 64).
+# Then small ragged, unaligned tensors under Adam's L2 decay, AdamW's
+# decoupled decay and beta1 0.3 (the other branch of torch's lerp) against
+# torch's foreach step; and each version's ms a step at the LM's shapes,
+# with torch's one-pass fused Adam's as the library's, beside the bound,
+# 28 B a parameter at 3.35 TB/s.
+UPDATE_LM = dict(vocab_size=50304, num_layers=24, num_heads=16, d_model=2048,
+                 d_ff=8192)
+UPDATE_STEPS = 10
+UPDATE_TIMED = 10
+TOL_UPDATE = 1e-6
 
 # the context phase, at the main path's shape (B=1, H=16, D=128, S=SEQ,
 # bf16, causal). (a) A virtual ring of RING_N ranks of SEQ/RING_N tokens:
@@ -723,6 +749,14 @@ KERNELS = {
     "flash_bwd_dkv": ("bluefog_tpu_torch/parallel/csrc/flash_bwd.cu",
                       "bluefog_tpu/parallel/flash.py:314"),
 }
+# the port's own kernels, with why each replaces no TPU kernel; their
+# launches are counted on every training path _check_training sees, by label
+OWN_KERNELS = {
+    "adam": ("bluefog_tpu_torch/parallel/csrc/adam.cu",
+             "none: the JAX package's optax.adam is fused by XLA into its "
+             "jitted step"),
+}
+ADAM_BY_PATH: dict = {}
 
 
 def log(*a) -> None:
@@ -1004,11 +1038,16 @@ def headline(bf, torch, dev, attn_fn, seq: int = SEQ, loss_fn=None,
 
 def _train_steps(fl, torch, opt, batch, warmup: int = WARMUP,
                  steps: int = STEPS) -> dict:
-    """``warmup`` then ``steps`` timed steps, the launch counts set to 0
-    just before and read just after."""
+    """``warmup`` then ``steps`` timed steps, the launch counts (the flash
+    kernels' in ``counts``, the fused Adam kernel's in ``adam`` beside the
+    launches a step ``opt`` should make) set to 0 just before and read just
+    after."""
+    from bluefog_tpu_torch.ops import update
+
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     fl.reset_launch_counts()
+    update.reset_launch_counts()
     losses = []
     for _ in range(warmup):
         losses.append(opt.step(batch)["loss"])
@@ -1019,8 +1058,47 @@ def _train_steps(fl, torch, opt, batch, warmup: int = WARMUP,
     torch.cuda.synchronize()
     dt = (time.perf_counter() - t0) / steps
     return {"counts": dict(fl.launch_counts), "dt": dt,
+            "adam": {"launches": update.launch_counts["adam"],
+                     "per_step": _adam_per_step(torch, opt),
+                     "steps": warmup + steps},
             "losses": [float(x) for x in losses],
             "peak": torch.cuda.max_memory_allocated()}
+
+
+def _adam_per_step(torch, opt) -> int:
+    """The fused Adam kernel's launches a step that ``opt`` should make: a
+    port optimizer around exactly ``torch.optim.Adam`` or ``AdamW`` over
+    f32 parameters launches once per ``TENSORS_PER_LAUNCH`` tensors with a
+    gradient, group by group; anything else (a plain Adam stepped by a
+    user's loop or the pipeline, SGD) runs torch's step and none."""
+    from bluefog_tpu_torch.ops import update
+    from bluefog_tpu_torch.optimizers import _FusedOptimizer
+
+    base = getattr(opt, "base", None)
+    if not isinstance(opt, _FusedOptimizer) or \
+            type(base) not in (torch.optim.Adam, torch.optim.AdamW):
+        return 0
+    per_step = 0
+    for group in base.param_groups:
+        live = [p for p in group["params"] if p.grad is not None]
+        if any(p.dtype != torch.float32 for p in live):
+            return 0
+        per_step += -(-len(live) // update.TENSORS_PER_LAUNCH)
+    return per_step
+
+
+def _check_adam(label: str, run: dict) -> None:
+    """The fused Adam kernel launched as often as ``run``'s optimizer
+    should; the count goes into ``ADAM_BY_PATH`` under ``label``."""
+    a = run["adam"]
+    key, i = label, 2
+    while key in ADAM_BY_PATH:
+        key, i = f"{label} ({i})", i + 1
+    ADAM_BY_PATH[key] = a["launches"]
+    if a["launches"] != a["per_step"] * a["steps"]:
+        raise RuntimeError(f"{label}: the fused Adam kernel launched "
+                           f"{a['launches']} times in {a['steps']} steps, "
+                           f"expected {a['per_step']} a step")
 
 
 def _check_training(label: str, run: dict, per_step: int) -> None:
@@ -1029,6 +1107,7 @@ def _check_training(label: str, run: dict, per_step: int) -> None:
         if c != per_step * total:
             raise RuntimeError(f"{label}: {name} launched {c} times in "
                                f"{total} steps, expected {per_step} a step")
+    _check_adam(label, run)
     losses = run["losses"]
     if not all(math.isfinite(x) for x in losses):
         raise RuntimeError(f"{label}: non-finite loss {losses}")
@@ -1049,10 +1128,11 @@ def train(bf, fl, torch) -> dict:
         f"ms/step={dt * 1e3:.3f} tokens/s={SEQ / dt:.1f} "
         f"peak_mem_GiB={peak / 2**30:.3f}")
     log("train losses: " + " ".join(f"{x:.5f}" for x in losses))
-    log(f"train launches: {counts}")
+    log(f"train launches: {counts}; adam {run['adam']['launches']} "
+        f"({run['adam']['per_step']} a step expected)")
     _check_training("train", run, LAYERS)
     bf.shutdown()
-    return {"counts": counts, "ms_per_step": dt * 1e3,
+    return {"counts": counts, "adam": run["adam"], "ms_per_step": dt * 1e3,
             "tokens_per_s": SEQ / dt, "peak_bytes": peak, "losses": losses}
 
 
@@ -1268,6 +1348,8 @@ def optimizers(bf, fl, torch) -> dict:
         torch.cuda.empty_cache()
         res["flat_collectives"] = flat_collectives(
             torch, dev, res["zero1_train"]["params"])
+        torch.cuda.empty_cache()
+        res["update"] = update_check(bf, torch, dev)
     finally:
         bf.shutdown()
     left = torch.cuda.memory_allocated() - before
@@ -1275,6 +1357,200 @@ def optimizers(bf, fl, torch) -> dict:
         raise RuntimeError(f"the optimizers phase left {left} bytes "
                            f"allocated on the card")
     return res
+
+def _update_runs(torch, p0: list, grads, kind: str, steps: int,
+                 **hyper) -> tuple:
+    """``steps`` steps of ``kind`` (``kernel``: ``FusedAdamStep`` on a
+    ``torch.optim`` optimizer; ``plain``: ``update.adam_plain``; ``torch``:
+    the optimizer's own step) from ``p0`` on the gradients ``grads(step)``
+    fills in; the parameters, moments and what ``FusedAdamStep`` updated."""
+    from bluefog_tpu_torch.ops import update
+
+    cls = torch.optim.AdamW if hyper.pop("adamw", False) else torch.optim.Adam
+    ps = [torch.nn.Parameter(_clone_at(p)) for p in p0]
+    opt = cls(ps, **hyper)
+    fused = update.FusedAdamStep.install(opt) if kind == "kernel" else None
+    updated = []
+    for step in range(steps):
+        for p, g in zip(ps, grads(step)):
+            p.grad = g
+        if kind == "plain":
+            group = opt.param_groups[0]
+            for p in ps:
+                st = opt.state[p]
+                if not st:
+                    st.update(step=torch.tensor(0.0),
+                              exp_avg=torch.zeros_like(p),
+                              exp_avg_sq=torch.zeros_like(p))
+                st["step"] += 1
+            with torch.no_grad():
+                update.adam_plain(
+                    ps, [p.grad for p in ps],
+                    [opt.state[p]["exp_avg"] for p in ps],
+                    [opt.state[p]["exp_avg_sq"] for p in ps],
+                    step=float(step + 1), lr=group["lr"],
+                    betas=group["betas"], eps=group["eps"],
+                    weight_decay=group["weight_decay"],
+                    decoupled=cls is torch.optim.AdamW)
+        else:
+            opt.step()
+        if fused is not None:
+            updated.append(fused.updated)
+        for p in ps:
+            p.grad = None
+    state = [(p.detach(), opt.state[p]["exp_avg"], opt.state[p]["exp_avg_sq"])
+             for p in ps]
+    return state, updated, opt
+
+
+def _clone_at(p):
+    """A copy of ``p`` as far off a 16-byte boundary as ``p`` is."""
+    import torch
+
+    off = p.data_ptr() % 16 // p.element_size()
+    buf = torch.empty(p.numel() + off, dtype=p.dtype, device=p.device)
+    return buf[off:].view(p.shape).copy_(p)
+
+
+def _update_errors(a: list, b: list) -> tuple:
+    """The largest error of ``a``'s parameters and moments against ``b``'s,
+    over each tensor's largest magnitude, and whether all are equal."""
+    import torch
+
+    worst, same = 0.0, True
+    for ta, tb in zip(a, b):
+        for x, y in zip(ta, tb):
+            same = same and torch.equal(x, y)
+            worst = max(worst, nerr(x, y))
+    return worst, same
+
+
+def update_check(bf, torch, dev) -> dict:
+    """(f) The fused Adam kernel against its plain version and torch's own
+    step on the benchmark LM's parameter list, then on small ragged tensors
+    under each branch; each version's ms a step, and torch's fused Adam's
+    (``fused=True``, timed only, as the library's one pass). Raises beyond
+    ``TOL_UPDATE`` or on a launch count off ``UPDATE_STEPS`` times the
+    table's."""
+    from bluefog_tpu_torch.ops import update
+
+    model = bf.models.TransformerLM(dtype=torch.bfloat16, attn_fn=None,
+                                    device=dev, seed=0, **UPDATE_LM)
+    p0 = [p.detach() for p in model.parameters()]
+    del model
+    n_params = sum(p.numel() for p in p0)
+    g = [torch.empty_like(p) for p in p0]
+
+    def grads(step):
+        gen = torch.Generator(device=dev).manual_seed(7000 + step)
+        for i, t in enumerate(g):
+            t.normal_(0.0, 10.0 ** -(2 + i % 5), generator=gen)
+        return g
+
+    hyper = dict(lr=1e-3, betas=(0.9, 0.999), eps=1e-8)
+    want, _, _ = _update_runs(torch, p0, grads, "torch", UPDATE_STEPS,
+                              **hyper)
+    torch.cuda.empty_cache()
+    update.reset_launch_counts()
+    got, updated, _ = _update_runs(torch, p0, grads, "kernel", UPDATE_STEPS,
+                                   **hyper)
+    launches = update.launch_counts["adam"]
+    vs_torch, bitwise = _update_errors(got, want)
+    del want
+    torch.cuda.empty_cache()
+    plain, _, _ = _update_runs(torch, p0, grads, "plain", UPDATE_STEPS,
+                               **hyper)
+    vs_plain, _ = _update_errors(got, plain)
+    del got, plain
+    torch.cuda.empty_cache()
+    per_step = -(-len(p0) // update.TENSORS_PER_LAUNCH)
+
+    # the other branches, on tensors the vectors do not tile, one a view
+    # 4 bytes off a 16-byte boundary
+    gen = torch.Generator(device=dev).manual_seed(7100)
+    small = [torch.randn(s, generator=gen, device=dev)
+             for s in ((1,), (3,), (4097,), (8193,), (65, 1000))]
+    small.append(torch.randn(9000, generator=gen, device=dev)[1:8194])
+    sg = [torch.empty_like(p) for p in small]
+
+    def small_grads(step):
+        gen = torch.Generator(device=dev).manual_seed(7200 + step)
+        for t in sg:
+            t.normal_(0.0, 1e-3, generator=gen)
+        return sg
+
+    branches = {}
+    for name, h in (("adam_l2", dict(weight_decay=0.01)),
+                    ("adamw", dict(weight_decay=0.01, adamw=True)),
+                    ("beta1_0.3", dict(betas=(0.3, 0.999)))):
+        kw = dict(hyper, **h)
+        a, _, _ = _update_runs(torch, small, small_grads, "kernel", 5, **kw)
+        b, _, _ = _update_runs(torch, small, small_grads, "torch", 5, **kw)
+        branches[name] = _update_errors(a, b)
+
+    # each version's ms a step at the LM's shapes, on one state
+    ps = [torch.nn.Parameter(p) for p in p0]
+    del p0
+    opt = torch.optim.Adam(ps, **hyper)
+    for p, t in zip(ps, grads(0)):
+        p.grad = t
+    opt.step()                                  # the state, once
+    st = [opt.state[p] for p in ps]
+    steps = float(st[0]["step"])
+    ms = {"torch": cuda_ms(opt.step, UPDATE_TIMED)}
+    fused = update.FusedAdamStep.install(opt)
+    ms["kernel"] = cuda_ms(opt.step, UPDATE_TIMED)
+    if fused.updated != n_params:
+        raise RuntimeError(f"the timed fused step updated {fused.updated} "
+                           f"of {n_params} parameters")
+
+    def plain_step():
+        with torch.no_grad():
+            update.adam_plain(ps, [p.grad for p in ps],
+                              [s["exp_avg"] for s in st],
+                              [s["exp_avg_sq"] for s in st], step=steps,
+                              **hyper)
+    ms["plain"] = cuda_ms(plain_step, UPDATE_TIMED)
+    del opt, st
+    torch.cuda.empty_cache()
+    # the library's one-pass step, torch's fused Adam, as a yardstick only:
+    # the port never calls it; its state is its own (a step on the card)
+    lib = torch.optim.Adam(ps, fused=True, **hyper)
+    lib.step()
+    ms["library"] = cuda_ms(lib.step, UPDATE_TIMED)
+    del lib, ps, g
+    bound_ms = 28 * n_params / 3.35e12 * 1e3
+    log(f"update check (f): {per_step} launches a step expected, "
+        f"{launches} in {UPDATE_STEPS} steps of "
+        f"{n_params} parameters; updated a step {sorted(set(updated))}; "
+        f"kernel vs torch.optim.Adam {vs_torch:.3e} (bit for bit "
+        f"{bitwise}), vs plain {vs_plain:.3e}; limit TOL_UPDATE="
+        f"{TOL_UPDATE}")
+    log("update branches (kernel vs torch.optim, error, bit for bit): " +
+        ", ".join(f"{k} {e:.3e} {b}" for k, (e, b) in branches.items()))
+    log(f"update ms a step (CUDA events, {UPDATE_TIMED} steps, Pythia-1.4B "
+        f"widths): kernel {ms['kernel']:.4f}, torch.optim.Adam foreach "
+        f"{ms['torch']:.4f}, plain {ms['plain']:.4f}, library "
+        f"torch.optim.Adam(fused=True) {ms['library']:.4f}; bound "
+        f"{bound_ms:.4f} "
+        f"(28 B a parameter at 3.35 TB/s), share "
+        f"{bound_ms / ms['kernel']:.3f}, "
+        f"{28 * n_params / ms['kernel'] / 1e6:.1f} GB/s")
+    bad = {k: e for k, (e, _) in branches.items() if not e <= TOL_UPDATE}
+    if not (vs_torch <= TOL_UPDATE and vs_plain <= TOL_UPDATE) or bad:
+        raise RuntimeError(f"the fused Adam kernel disagrees beyond "
+                           f"TOL_UPDATE={TOL_UPDATE}: vs torch {vs_torch}, "
+                           f"vs plain {vs_plain}, branches {bad}")
+    if launches != per_step * UPDATE_STEPS or \
+            set(updated) != {n_params}:
+        raise RuntimeError(f"the fused Adam kernel launched {launches} "
+                           f"times (expected {per_step} a step) and updated "
+                           f"{sorted(set(updated))} of {n_params} a step")
+    return {"launches_per_step": per_step, "params": n_params,
+            "vs_torch": vs_torch, "bitwise_torch": bitwise,
+            "vs_plain": vs_plain, "branches": branches, "ms": ms,
+            "bound_ms": bound_ms}
+
 
 def _roll(xs: list) -> list:
     """One rotation of the virtual ring: rank i's item moves to rank i+1."""
@@ -4591,6 +4867,7 @@ def winopt_hosted(bf, fl, torch, card: str, train_run: dict,
                                        WINOPT_HOSTED_STEPS)
                 finally:
                     legs.close()
+                _check_adam(f"hosted {cls}", run)
                 r = {"counts": run["counts"],
                      "ms_per_step": run["dt"] * 1e3,
                      "peak_bytes": run["peak"], "losses": run["losses"],
@@ -5979,6 +6256,18 @@ def main() -> int:
                 f"scaling EP LM gradient, fake {SCALE_AUX_N}": scaled["ep"][
                     "launches"][name]},
         })
+    upd = opts["update"]
+    src, why = OWN_KERNELS["adam"]
+    kernels.append({
+        "name": "adam", "route": "cuda", "source": src, "replaces": None,
+        "replaces_why": why, "launches": ADAM_BY_PATH["train"],
+        "err_vs_plain": upd["vs_plain"], "err_vs_foreach": upd["vs_torch"],
+        "ms": upd["ms"]["kernel"], "plain_ms": upd["ms"]["plain"],
+        "bound_ms": upd["bound_ms"], "bound_by": "bytes",
+        "library_ms": upd["ms"]["library"],
+        "library_call": "torch.optim.Adam(fused=True).step",
+        "foreach_ms": upd["ms"]["torch"],
+        "launches_by_path": dict(ADAM_BY_PATH)})
     os.makedirs(os.path.dirname(OUT), exist_ok=True)
     with open(OUT, "w") as f:
         json.dump({"card": card, "kernels": kernels, "train": run,

@@ -130,12 +130,12 @@ def test_env_knob_opens_one_file_per_rank(traces):
 
 
 # what the port's timeline holds beyond the JAX package's: the spans of
-# the fused step's parts and the combine's counter tracks
+# the fused step's parts, the combine's and the update's counter tracks
 PORT_ONLY = {("B", part, "DistributedNeighborAllreduceOptimizer")
              for part in ("FORWARD", "BACKWARD", "UPDATE", "COMBINE", "PACK",
                           "EXCHANGE", "SUM", "UNPACK", "WRITE_BACK")} | \
     {("C", name, "bf") for name in ("opt.combine_bytes", "opt.combine_sends",
-                                     "opt.plan_builds")}
+                                     "opt.plan_builds", "opt.update_fused")}
 
 
 def test_same_events_as_jax(traces):
